@@ -1,0 +1,86 @@
+"""Skip connections (port of ``neuraloperator_tpu/layers/skip_connections.py``)."""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from . import _init
+
+
+class SoftGating(nn.Module):
+    """Per-channel learnable gate ``x * w (+ b)``, channels first."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: Optional[int] = None,
+        n_dim: int = 2,
+        use_bias: bool = False,
+        *,
+        device="cuda",
+    ):
+        super().__init__()
+        if out_features is not None and in_features != out_features:
+            raise ValueError(
+                "SoftGating requires in_features == out_features, got "
+                f"{in_features} != {out_features}"
+            )
+        shape = (1, in_features) + (1,) * n_dim
+        self.weight = _init.constant(shape, 1.0, device)
+        self.bias = _init.constant(shape, 1.0, device) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is not None:
+            return self.weight * x + self.bias
+        return self.weight * x
+
+
+class Flattened1dConv(nn.Module):
+    """Pointwise channel projection over the flattened spatial dims."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        use_bias: bool = False,
+        *,
+        device="cuda",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.out_channels = out_channels
+        self.weight = _init.lecun_normal((out_channels, in_channels), device, generator)
+        self.bias = _init.constant((out_channels,), 0.0, device) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, *spatial = x.shape
+        y = torch.matmul(self.weight, x.reshape(b, c, -1))
+        if self.bias is not None:
+            y = y + self.bias[:, None]
+        return y.reshape(b, self.out_channels, *spatial)
+
+
+def skip_connection(
+    in_features: int,
+    out_features: int,
+    n_dim: int = 2,
+    use_bias: bool = False,
+    skip_type: str = "soft-gating",
+    *,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+) -> nn.Module:
+    """Build the skip named by ``skip_type``."""
+    st = skip_type.lower()
+    if st == "soft-gating":
+        return SoftGating(in_features, out_features, n_dim, use_bias, device=device)
+    if st == "linear":
+        return Flattened1dConv(
+            in_features, out_features, use_bias, device=device, generator=generator
+        )
+    if st == "identity":
+        return nn.Identity()
+    raise ValueError(
+        f"Got skip_type={skip_type}, expected one of 'soft-gating', 'linear', 'identity'"
+    )
