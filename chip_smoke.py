@@ -9,15 +9,26 @@ Phases, each printed with its elapsed seconds as it goes:
 1. the card: requires CUDA, prints ``nvidia-smi``'s name and power limit;
 2. build: compiles the CUDA kernels from ``neuraloperator_tpu_torch/csrc``
    and prints nvcc's registers and spills per kernel;
-3. kernels: runs each kernel against its plain PyTorch version at the
-   flagship shapes, and times the kernel, the plain version and one library
-   call with CUDA events beside the kernel's byte bound;
+3. kernels: runs each kernel (K1 forward contraction, K2 its input
+   gradient, K3 its weight gradient) against its plain PyTorch version at
+   the flagship shapes, and times the kernel, the plain version and one
+   library call with CUDA events beside the kernel's bound;
 4. serve: builds the flagship NS-128 FNO (``artifacts/ns128_v2``) at full
    width with seeded weights and the checkpoint's normalizers, serves
-   requests through ``CompiledForward``, checks every answer, the kernel's
-   launch count and a batch-3 answer against the same model on the CPU,
-   and probes the latency of each bucket;
-5. prints one ``{"kernels": [...]}`` line, then, as the last line,
+   requests through ``CompiledForward``, checks every answer, K1's launch
+   count and a batch-3 answer against the same model on the CPU, and probes
+   the latency of each bucket;
+5. train, in the same process after serving: builds the flagship FNO at
+   full width with seeded weights, seeded 128² pairs (a fixed spectral
+   filter of smooth inputs at the checkpoint normalizer's scale) and fitted
+   normalizers, runs ``Trainer.train`` for 2 epochs with the flagship's
+   factored AdamW and H1 loss, checks every metric is finite and the launch
+   counts of K1, K2 and K3, times the train steps and reads the peak device
+   memory; then runs one train step of batch 2 on the card and the same
+   step on the CPU from the same weights, and compares the loss and every
+   gradient; last, a torch.profiler table of two train steps (device time
+   by kernel, and the device's idle share of the host-clock window);
+6. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -27,14 +38,19 @@ line. It imports nothing of JAX.
 import json
 import math
 import subprocess
+import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "artifacts" / "ns128_v2"
 SEED = 0
+SOURCE = "neuraloperator_tpu_torch/csrc/spectral_contraction.cu"
+PALLAS = "neuraloperator_tpu/ops/pallas/spectral_contraction.py"
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense peaks by operand type
 HBM_BYTES_PER_S = 3.35e12
@@ -43,10 +59,23 @@ L2_BYTES = 50 * 2**20
 
 # the flagship's spectral contraction: 64 x 64 channels over 64 x 33 modes
 CHANNELS, MODES = 64, 64 * 33
+TRAIN_BATCH = 8
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 SERVE_TOL = 1e-4
 REQUESTS = (3, 1, 8, 3, 8, 1)
 BUCKETS = (1, 8)
+
+# the training phase: the flagship v2 run's optimizer (scripts/run_flagship_v2.sh)
+OPT = SimpleNamespace(learning_rate=3e-5, weight_decay=1e-4, step_size=50, gamma=0.5,
+                      opt_state="factored")
+TRAIN_BATCHES, TEST_BATCHES, EPOCHS = 4, 1, 2
+# One step on the card against the same step on the CPU, f32 on both with
+# TF32 off: the loss sums 2 x 128² points in another order on each device
+# (relative error ~1e-7 per sum), so 1e-5; a gradient is a chain of such
+# sums through 4 spectral layers, DFT matmuls and channel MLPs, whose
+# rounding compounds, so 1e-4 per parameter (the small on-card test holds
+# the same bound, tests/test_torch_on_card.py).
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-5, 1e-4
 
 _T0 = time.perf_counter()
 
@@ -73,7 +102,7 @@ def time_ms(fn, arg_sets, iters: int) -> float:
     """Mean ms per call by CUDA events.
 
     The calls walk ``arg_sets`` round robin; the sets together exceed the
-    L2 cache, so every call reads its weights from device memory, as each
+    L2 cache, so every call reads its operands from device memory, as each
     layer of the model does.
     """
     for args in arg_sets:
@@ -89,49 +118,85 @@ def time_ms(fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def packed_einsum(x2, w2):
-    """The library yardstick: the JAX package's packed einsum in one call."""
+# One packed einsum per kernel: the four real products of the complex
+# contraction in one cuBLAS-backed call (the JAX package's XLA path), the
+# library yardstick. The port never calls them.
+def packed_fwd(x2, w2):
     return torch.einsum("bim,iom->bom", x2, w2)
 
 
-def check_mode_contraction(batch: int, dtype: torch.dtype) -> dict:
-    """K1 against its plain version at the flagship shape, and its times."""
-    from neuraloperator_tpu_torch.ops.spectral_contraction import (
-        mode_contraction,
-        mode_contraction_reference,
-    )
+def packed_dx(g2, w2):
+    return torch.einsum("bom,iom->bim", g2, w2)
 
+
+def packed_dw(x2, g2):
+    return torch.einsum("bim,bom->iom", x2, g2)
+
+
+def kernel_specs():
+    """Name, wrapper, plain version, library call and operand shapes per kernel."""
+    from neuraloperator_tpu_torch.ops import spectral_contraction as tsc
+
+    return {
+        "mode_contraction": dict(
+            fn=tsc.mode_contraction, plain=tsc.mode_contraction_reference,
+            library=packed_fwd, dn="_FWD", line=67, b_is_weight=True,
+            a=lambda B, I, O, M: (B, I, M), b=lambda B, I, O, M: (I, O, M),
+            out=lambda B, I, O, M: (B, O, M),
+            pack=lambda s: (torch.cat([s[0], s[1]]), torch.cat([s[2], s[3]], dim=1)),
+        ),
+        "mode_contraction_dx": dict(
+            fn=tsc.mode_contraction_dx, plain=tsc.mode_contraction_dx_reference,
+            library=packed_dx, dn="_BWD_X, conj_b=True", line=68, b_is_weight=True,
+            a=lambda B, I, O, M: (B, O, M), b=lambda B, I, O, M: (I, O, M),
+            out=lambda B, I, O, M: (B, I, M),
+            pack=lambda s: (torch.cat([s[0], s[1]]), torch.cat([s[2], s[3]])),
+        ),
+        "mode_contraction_dw": dict(
+            fn=tsc.mode_contraction_dw, plain=tsc.mode_contraction_dw_reference,
+            library=packed_dw, dn="_BWD_W, conj_a=True", line=69, b_is_weight=False,
+            a=lambda B, I, O, M: (B, I, M), b=lambda B, I, O, M: (B, O, M),
+            out=lambda B, I, O, M: (I, O, M),
+            pack=lambda s: (torch.cat([s[0], s[1]], dim=1), torch.cat([s[2], s[3]], dim=1)),
+        ),
+    }
+
+
+def check_kernel(name: str, batch: int, dtype: torch.dtype) -> dict:
+    """One kernel against its plain version at the flagship shape, and its times."""
+    spec = kernel_specs()[name]
     I = O = CHANNELS
     M = MODES
+    dims = (batch, I, O, M)
     size = torch.finfo(dtype).bits // 8
-    x_bytes, w_bytes = 2 * batch * I * M * size, 2 * I * O * M * size
-    n_sets = max(2, math.ceil(2 * L2_BYTES / (x_bytes + w_bytes)) + 1)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + batch)
-    w_std = (2 / (I + O)) ** 0.5 / 2 ** 0.5  # the layer's init scale
-    sets = []
-    for _ in range(n_sets):
-        x = [torch.randn(batch, I, M, generator=gen, device="cuda").to(dtype) for _ in range(2)]
-        w = [(w_std * torch.randn(I, O, M, generator=gen, device="cuda")).to(dtype)
-             for _ in range(2)]
-        sets.append((*x, *w))
+    a_shape, b_shape, out_shape = spec["a"](*dims), spec["b"](*dims), spec["out"](*dims)
+    in_bytes = 2 * (math.prod(a_shape) + math.prod(b_shape)) * size
+    out_bytes = 2 * math.prod(out_shape) * 4
+    n_sets = max(2, math.ceil(2 * L2_BYTES / (in_bytes + out_bytes)) + 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + batch + spec["line"])
+    # a weight operand at the layer's init scale, the others unit normal
+    b_scale = (2 / (I + O)) ** 0.5 / 2 ** 0.5 if spec["b_is_weight"] else 1.0
 
-    kr, ki = mode_contraction(*sets[0])
+    def draw(shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+
+    sets = [(draw(a_shape), draw(a_shape), draw(b_shape, b_scale), draw(b_shape, b_scale))
+            for _ in range(n_sets)]
+    kr, ki = spec["fn"](*sets[0])
     torch.cuda.synchronize()
-    pr, pi = mode_contraction_reference(*sets[0])
+    pr, pi = spec["plain"](*sets[0])
     err = rel_l2(kr, ki, pr, pi)
     max_abs = float(torch.maximum((kr - pr).abs().max(), (ki - pi).abs().max()))
-    name = f"mode_contraction B={batch} {str(dtype).replace('torch.', '')}"
-    log(f"{name}: rel_l2 {err:.3e} (tol {KERNEL_TOL[dtype]:.0e}), max_abs {max_abs:.3e}")
+    label = f"{name} B={batch} {str(dtype).replace('torch.', '')}"
+    log(f"{label}: rel_l2 {err:.3e} (tol {KERNEL_TOL[dtype]:.0e}), max_abs {max_abs:.3e}")
     if not err <= KERNEL_TOL[dtype]:
-        raise AssertionError(f"{name} disagrees with its plain version: rel_l2 {err}")
+        raise AssertionError(f"{label} disagrees with its plain version: rel_l2 {err}")
 
-    ms = time_ms(mode_contraction, sets, iters=60)
-    plain_ms = time_ms(mode_contraction_reference, sets, iters=20)
-    packed = [(torch.cat([s[0], s[1]]), torch.cat([s[2], s[3]], dim=1)) for s in sets]
-    library_ms = time_ms(packed_einsum, packed, iters=20)
-    out_bytes = 2 * batch * O * M * 4
+    ms = time_ms(spec["fn"], sets, iters=60)
+    plain_ms = time_ms(spec["plain"], sets, iters=20)
+    library_ms = time_ms(spec["library"], [spec["pack"](s) for s in sets], iters=20)
     flops = 8 * batch * I * O * M
-    bytes_s = (x_bytes + w_bytes + out_bytes) / HBM_BYTES_PER_S
+    bytes_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
     ops_s = flops / PEAK_FLOPS[dtype]
     result = {
         "batch": batch, "dtype": str(dtype).replace("torch.", ""),
@@ -140,21 +205,41 @@ def check_mode_contraction(batch: int, dtype: torch.dtype) -> dict:
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bytes_s, ops_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-        "bytes": x_bytes + w_bytes + out_bytes, "flops": flops,
+        "bytes": in_bytes + out_bytes, "flops": flops,
     }
-    log(f"{name}: kernel {ms:.4f} ms, bound {result['bound_ms']:.4f} ms "
+    log(f"{label}: kernel {ms:.4f} ms, bound {result['bound_ms']:.4f} ms "
         f"({result['bound_by']}), plain {plain_ms:.4f} ms, packed einsum {library_ms:.4f} ms")
     return result
+
+
+def reset_launches() -> None:
+    for spec in kernel_specs().values():
+        spec["fn"].launches = 0
+
+
+def read_launches() -> dict:
+    return {name: spec["fn"].launches for name, spec in kernel_specs().items()}
+
+
+def flagship_meta() -> dict:
+    return json.loads((FLAGSHIP / "model_metadata.json").read_text())
+
+
+def cpu_copy(model, meta):
+    from neuraloperator_tpu_torch.models import model_from_metadata
+
+    cpu_model = model_from_metadata(meta, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu_model
 
 
 def serve() -> dict:
     """The flagship FNO served through CompiledForward; returns its numbers."""
     from neuraloperator_tpu_torch.data.transforms import load_data_processor
     from neuraloperator_tpu_torch.models import model_from_metadata
-    from neuraloperator_tpu_torch.ops.spectral_contraction import mode_contraction
     from neuraloperator_tpu_torch.serving import CompiledForward
 
-    meta = json.loads((FLAGSHIP / "model_metadata.json").read_text())
+    meta = flagship_meta()
     t0 = time.perf_counter()
     model = model_from_metadata(
         meta, device="cuda", generator=torch.Generator().manual_seed(SEED)
@@ -178,14 +263,14 @@ def serve() -> dict:
     gen = torch.Generator().manual_seed(SEED + 1)
     in_std = float(processor.in_normalizer.std.ravel()[0])
     requests = [in_std * torch.randn(n, 1, 128, 128, generator=gen) for n in REQUESTS]
-    mode_contraction.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     answers = []
     for x in requests:
         answers.append(served(x))
         torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = mode_contraction.launches
+    launches = read_launches()
     for x, y in zip(requests, answers):
         if tuple(y.shape) != tuple(x.shape):
             raise AssertionError(f"answer of shape {tuple(y.shape)} to a {tuple(x.shape)} request")
@@ -193,17 +278,18 @@ def serve() -> dict:
             raise AssertionError(f"non-finite answer to a batch-{x.shape[0]} request")
     log(f"serve: {len(REQUESTS)} requests of batch {REQUESTS} answered in {serve_s:.3f} s, "
         f"shapes and finiteness checked; kernel launches {launches}")
-    if launches != n_layers * len(REQUESTS):
+    expected = {"mode_contraction": n_layers * len(REQUESTS),
+                "mode_contraction_dx": 0, "mode_contraction_dw": 0}
+    if launches != expected:
         raise AssertionError(
-            f"mode_contraction launched {launches} times for {len(REQUESTS)} "
-            f"forwards of {n_layers} spectral layers"
+            f"serving {len(REQUESTS)} forwards of {n_layers} spectral layers launched "
+            f"{launches}, expected {expected}"
         )
 
     # the same model on the CPU, through the plain versions
-    cpu_model = model_from_metadata(meta, device="meta").to_empty(device="cpu")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     batch3 = REQUESTS.index(3)
-    cpu_served = CompiledForward(cpu_model, example, batch_sizes=(3,), device="cpu", **normalizers)
+    cpu_served = CompiledForward(cpu_copy(model, meta), example, batch_sizes=(3,),
+                                 device="cpu", **normalizers)
     ref = cpu_served(requests[batch3])
     got = answers[batch3].cpu()
     err = float((got.double() - ref.double()).norm() / ref.double().norm())
@@ -216,6 +302,197 @@ def serve() -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return {"launches": launches, "latency_ms": latency_ms, "rel_l2_vs_cpu": err,
             "requests": list(REQUESTS), "serve_s": serve_s}
+
+
+def make_pairs(n: int, in_std: float, seed: int):
+    """n seeded 128² pairs: smooth inputs at ``in_std`` and a fixed spectral
+    filter of them (a smoothing, phase-shifting multiplier on the rfft2)."""
+    rng = np.random.default_rng(seed)
+    k1 = np.fft.fftfreq(128, 1 / 128)[:, None]
+    k2 = np.fft.rfftfreq(128, 1 / 128)[None, :]
+    k_sq = k1 ** 2 + k2 ** 2
+    coeffs = rng.standard_normal((n, 1, 128, 65)) + 1j * rng.standard_normal((n, 1, 128, 65))
+    x = np.fft.irfft2(coeffs * (1 + k_sq) ** -1.5, s=(128, 128))
+    x = (in_std * x / x.std()).astype(np.float32)
+    response = np.exp(-k_sq / 400.0) * np.exp(2j * np.pi * (3 * k1 + 5 * k2) / 128)
+    y = np.fft.irfft2(np.fft.rfft2(x) * response, s=(128, 128)).astype(np.float32)
+    return x, y
+
+
+def train() -> dict:
+    """The flagship FNO trained through Trainer.train; returns its numbers."""
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
+    from neuraloperator_tpu_torch.data.transforms import (
+        DefaultDataProcessor,
+        UnitGaussianNormalizer,
+        load_data_processor,
+    )
+    from neuraloperator_tpu_torch.losses import H1Loss, LpLoss
+    from neuraloperator_tpu_torch.models import model_from_metadata
+    from neuraloperator_tpu_torch.training import Trainer, build_optimizer
+
+    meta = flagship_meta()
+    n_layers = meta["init_kwargs"]["n_layers"]
+    t0 = time.perf_counter()
+    model = model_from_metadata(
+        meta, device="cuda", generator=torch.Generator().manual_seed(SEED + 2)
+    )
+    in_std = float(load_data_processor(FLAGSHIP).in_normalizer.std.ravel()[0])
+    n_train, n_test = TRAIN_BATCHES * TRAIN_BATCH, TEST_BATCHES * TRAIN_BATCH
+    x, y = make_pairs(n_train + n_test, in_std, SEED + 3)
+    processor = DefaultDataProcessor(
+        UnitGaussianNormalizer(dim=[0, 2, 3]).fit(x[:n_train]),
+        UnitGaussianNormalizer(dim=[0, 2, 3]).fit(y[:n_train]),
+    )
+    train_loader = DataLoader(TensorDataset(x[:n_train], y[:n_train]), TRAIN_BATCH,
+                              shuffle=True, seed=SEED)
+    test_loaders = {128: DataLoader(TensorDataset(x[n_train:], y[n_train:]), TRAIN_BATCH)}
+    h1, l2 = H1Loss(d=2), LpLoss(d=2)
+    log(f"train: flagship FNO with seeded weights, {n_train} + {n_test} pairs of 128², "
+        f"normalizers fitted, in {time.perf_counter() - t0:.1f} s")
+
+    trainer = Trainer(model=model, n_epochs=EPOCHS, data_processor=processor,
+                      eval_interval=1, device="cuda")
+    optimizer = build_optimizer(OPT, len(train_loader))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = trainer.train(train_loader, test_loaders, optimizer, training_loss=h1,
+                            eval_losses={"h1": h1, "l2": l2})
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    log(f"train: {EPOCHS} epochs of {TRAIN_BATCHES} steps of batch {TRAIN_BATCH} in "
+        f"{train_s:.2f} s; metrics {metrics}; kernel launches {launches}; peak device "
+        f"memory {peak_mib:.0f} MiB")
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"non-finite training metrics {bad}")
+    steps = EPOCHS * TRAIN_BATCHES
+    eval_forwards = EPOCHS * TEST_BATCHES  # eval_interval 1: one eval per epoch
+    expected = {"mode_contraction": n_layers * (steps + eval_forwards),
+                "mode_contraction_dx": n_layers * steps,
+                "mode_contraction_dw": n_layers * steps}
+    if launches != expected:
+        raise AssertionError(f"training launched {launches}, expected {expected}")
+    # the Trainer's epoch_time of the last epoch: warm steps, ended by the
+    # float() of the summed loss, which waits for the device
+    step_ms = 1e3 * metrics["epoch_time"] / TRAIN_BATCHES
+    log(f"train: {step_ms:.2f} ms per train step of batch {TRAIN_BATCH} "
+        f"({1e3 / step_ms:.2f} steps/s, last epoch's epoch_time)")
+
+    step = compare_step_with_cpu(model, meta, processor, x[n_train:n_train + 2],
+                                 y[n_train:n_train + 2])
+    out = {"launches": launches, "metrics": metrics, "train_s": train_s,
+           "step_ms": step_ms, "steps_per_s": 1e3 / step_ms, "peak_mib": peak_mib,
+           "steps": steps, "eval_forwards": eval_forwards, **step}
+    out["profile"] = profile_steps(model, processor, x[:2 * TRAIN_BATCH], y[:2 * TRAIN_BATCH])
+    return out
+
+
+def one_step(model, processor, x, y, device):
+    """One Trainer.train step of the given batch; returns (loss, grads)."""
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.training import Trainer, build_optimizer
+
+    loader = DataLoader(TensorDataset(x, y), len(x))
+    trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device=device)
+    metrics = trainer.train(loader, {}, build_optimizer(OPT, 1), training_loss=H1Loss(d=2))
+    return metrics["train_err"], {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def compare_step_with_cpu(model, meta, processor, x, y) -> dict:
+    """One train step on the card against the same step on the CPU."""
+    cpu_model = cpu_copy(model, meta)
+    t0 = time.perf_counter()
+    loss_gpu, grads_gpu = one_step(model, processor, x, y, "cuda")
+    loss_cpu, grads_cpu = one_step(cpu_model, processor, x, y, "cpu")
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err = {}
+    for name, ref in grads_cpu.items():
+        ref = ref.double()
+        grad_err[name] = float((grads_gpu[name].double() - ref).norm() / ref.norm())
+    worst = max(grad_err, key=grad_err.get)
+    log(f"train: one step of batch {len(x)}, card vs CPU in {time.perf_counter() - t0:.1f} s: "
+        f"loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel {loss_err:.2e}, tol {STEP_LOSS_TOL:.0e}); "
+        f"gradients rel_l2 max {grad_err[worst]:.2e} ({worst}, tol {STEP_GRAD_TOL:.0e}) "
+        f"over {len(grad_err)} parameters")
+    if not loss_err <= STEP_LOSS_TOL:
+        raise AssertionError(f"card and CPU losses differ: rel {loss_err}")
+    misses = {k: v for k, v in grad_err.items() if not v <= STEP_GRAD_TOL}
+    if misses:
+        raise AssertionError(f"card and CPU gradients differ: {misses}")
+    return {"step_loss_rel_err": loss_err, "step_grad_rel_l2_max": grad_err[worst],
+            "step_grad_worst": worst}
+
+
+def profile_steps(model, processor, x, y) -> dict:
+    """Device time by kernel over two train steps of batch 8 (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.training import Trainer, build_optimizer
+
+    loader = DataLoader(TensorDataset(x, y), TRAIN_BATCH)
+    trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device="cuda")
+    trainer.train(loader, {}, build_optimizer(OPT, 1), training_loss=H1Loss(d=2))  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train(loader, {}, build_optimizer(OPT, 1), training_loss=H1Loss(d=2))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # kernels only: user annotations (the optimizer's range, for one) span
+    # kernels that are listed themselves
+    spans, kernels = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        bucket = spans if (getattr(e, "is_user_annotation", False)
+                           or e.name.startswith("Optimizer.")) else kernels
+        bucket[e.name] = bucket.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not kernels:
+        log("profile: the profiler recorded no device kernels; device time not measured")
+        return {"wall_ms": wall_ms}
+    total = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    log(f"profile: 2 train steps of batch {TRAIN_BATCH}: wall {wall_ms:.2f} ms, kernels "
+        f"{total:.2f} ms ({total / wall_ms:.1%}; idle {1 - total / wall_ms:.1%}); "
+        f"annotated spans (ms) {spans}")
+    for key, ms in top:
+        print(f"    {ms:9.3f} ms  {ms / total:6.1%}  {key[:110]}", flush=True)
+    return {"wall_ms": wall_ms, "device_ms": total, "spans": spans, "top": top}
+
+
+def kernel_line(variants, served, trained) -> list:
+    """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel."""
+    kernels = []
+    for name, spec in kernel_specs().items():
+        own = [v for v in variants if v["name"] == name]
+        main = next(v for v in own if v["dtype"] == "float32" and v["batch"] == TRAIN_BATCH)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": f"{PALLAS}:140 (_mode_contraction, dn={spec['dn']}, :{spec['line']})",
+            "launches": trained["launches"][name],
+            "launches_by_path": {"serve": served["launches"][name],
+                                 "train": trained["launches"][name]},
+            "max_abs_err": main["max_abs_err"],
+            "rel_l2": main["rel_l2"],
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shape": main["shape"],
+            "variants": [{k: v for k, v in x.items() if k != "name"} for x in own],
+        })
+    return kernels
 
 
 def main() -> None:
@@ -236,29 +513,17 @@ def main() -> None:
     for line in ptxas:
         print(f"    {line}", flush=True)
 
-    variants = [check_mode_contraction(b, dt)
+    variants = [dict(name="mode_contraction", **check_kernel("mode_contraction", b, dt))
                 for dt in (torch.float32, torch.bfloat16) for b in BUCKETS]
+    variants += [dict(name=name, **check_kernel(name, TRAIN_BATCH, dt))
+                 for name in ("mode_contraction_dx", "mode_contraction_dw")
+                 for dt in (torch.float32, torch.bfloat16)]
     served = serve()
+    trained = train()
 
-    main_variant = next(v for v in variants if v["dtype"] == "float32" and v["batch"] == max(BUCKETS))
-    kernels = [{
-        "name": "mode_contraction",
-        "route": "cuda",
-        "source": "neuraloperator_tpu_torch/csrc/spectral_contraction.cu",
-        "replaces": "neuraloperator_tpu/ops/pallas/spectral_contraction.py:140",
-        "launches": served["launches"],
-        "max_abs_err": main_variant["max_abs_err"],
-        "rel_l2": main_variant["rel_l2"],
-        "ms": main_variant["ms"],
-        "kernel_ms": main_variant["ms"],
-        "plain_ms": main_variant["plain_ms"],
-        "bound_ms": main_variant["bound_ms"],
-        "bound_by": main_variant["bound_by"],
-        "library_ms": main_variant["library_ms"],
-        "shape": main_variant["shape"],
-        "variants": variants,
-    }]
-    log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}")
+    kernels = kernel_line(variants, served, trained)
+    log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
+        f"train step {trained['step_ms']:.2f} ms, peak {trained['peak_mib']:.0f} MiB")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -268,4 +533,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

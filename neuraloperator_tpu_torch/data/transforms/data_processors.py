@@ -1,7 +1,8 @@
 """Data processors (port of ``neuraloperator_tpu/data/transforms/data_processors.py``).
 
-``DefaultDataProcessor`` state and ``load_data_processor``, which reads the
-``data_processor.json`` sidecar saved beside a checkpoint.
+``DefaultDataProcessor`` (preprocess, postprocess, state) and
+``load_data_processor``, which reads the ``data_processor.json`` sidecar
+saved beside a checkpoint.
 """
 
 import json
@@ -12,7 +13,7 @@ from .normalizers import UnitGaussianNormalizer
 
 
 class DefaultDataProcessor:
-    """The input and output normalizers a model was trained with.
+    """Normalize x always; normalize y in training, denormalize predictions in eval.
 
     Serving bakes ``in_normalizer.transform`` in before the model and
     ``out_normalizer.inverse_transform`` after it.
@@ -21,6 +22,31 @@ class DefaultDataProcessor:
     def __init__(self, in_normalizer=None, out_normalizer=None):
         self.in_normalizer = in_normalizer
         self.out_normalizer = out_normalizer
+
+    def preprocess(self, sample: dict, train: bool = True) -> dict:
+        sample = dict(sample)
+        if self.in_normalizer is not None:
+            sample["x"] = self.in_normalizer.transform(sample["x"])
+        if self.out_normalizer is not None and train:
+            sample["y"] = self.out_normalizer.transform(sample["y"])
+        return sample
+
+    def postprocess(self, out, sample: dict, train: bool = True):
+        if self.out_normalizer is not None and not train:
+            out = self.out_normalizer.inverse_transform(out)
+        return out, sample
+
+    def state_dict(self) -> dict:
+        """JSON-serializable fitted state, as saved in the checkpoint sidecar."""
+        return {
+            "type": "DefaultDataProcessor",
+            "in_normalizer": (
+                None if self.in_normalizer is None else self.in_normalizer.state_dict()
+            ),
+            "out_normalizer": (
+                None if self.out_normalizer is None else self.out_normalizer.state_dict()
+            ),
+        }
 
     @classmethod
     def from_state_dict(cls, state: dict) -> "DefaultDataProcessor":

@@ -35,7 +35,7 @@ class ChannelMLP(nn.Module):
     ):
         super().__init__()
         if dropout:
-            raise not_ported("ChannelMLP dropout", "the training slice")
+            raise not_ported("ChannelMLP dropout", "dropout, scan_layers and remat")
         self.out_channels = out_channels or in_channels
         hidden = hidden_channels or in_channels
         self.n_layers = n_layers

@@ -32,9 +32,11 @@ def _grid_channels(
     device: torch.device,
     dtype: torch.dtype,
 ) -> torch.Tensor:
-    """The grid as one (1, dim, d1..dN) tensor, built once per device."""
-    grids = regular_grid_nd(resolutions, boundaries, device)
-    return torch.stack(grids)[None].to(dtype)
+    """The grid as one (1, dim, d1..dN) tensor, built once per device and
+    outside inference mode, so that serving and training can share it."""
+    with torch.inference_mode(False):
+        grids = regular_grid_nd(resolutions, boundaries, device)
+        return torch.stack(grids)[None].to(dtype)
 
 
 class GridEmbeddingND:

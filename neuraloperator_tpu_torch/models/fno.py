@@ -71,7 +71,7 @@ class FNO(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if scan_layers or remat:
-            raise not_ported("FNO scan_layers/remat", "the training slice")
+            raise not_ported("FNO scan_layers/remat", "dropout, scan_layers and remat")
         if complex_data:
             raise not_ported("FNO complex_data=True", "the other families")
         if domain_padding is not None and domain_padding != 0:

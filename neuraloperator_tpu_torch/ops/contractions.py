@@ -3,14 +3,16 @@
 Only the dense, non-separable contraction is ported. Where the JAX
 package chose between a Pallas kernel and a packed einsum by backend
 (``set_contraction_backend``), the port goes by the tensor's device: CUDA
-tensors take the CUDA kernel, CPU tensors its plain version.
+tensors take the CUDA kernels, CPU tensors their plain versions. On both
+devices the contraction runs through ``ModeContraction``, so its backward
+is the kernels' (K2 and K3) on the card and their plain versions on the CPU.
 """
 
 from typing import Tuple
 
 import torch
 
-from .spectral_contraction import mode_contraction
+from .spectral_contraction import ModeContraction
 
 Parts = Tuple[torch.Tensor, torch.Tensor]
 
@@ -31,5 +33,5 @@ def contract_dense(x: Parts, weight: Parts) -> Parts:
         )
     flat_x = [t.reshape(b, i, -1).contiguous() for t in (xr, xi)]
     flat_w = [t.reshape(i, o, -1).contiguous() for t in (wr, wi)]
-    out_r, out_i = mode_contraction(*flat_x, *flat_w)
+    out_r, out_i = ModeContraction.apply(*flat_x, *flat_w)
     return out_r.reshape(b, o, *modes), out_i.reshape(b, o, *modes)

@@ -8,7 +8,8 @@ Hermitian constraint. These are plain large matmuls, left to
 ``torch.matmul`` as the JAX package left them to XLA.
 
 The matrices are built once per (n, kept, norm) in numpy (float64 maths,
-stored as float32) and cached as tensors once per device.
+stored as float32) and cached as tensors once per device, outside inference
+mode so that serving and training can share them in one process.
 """
 
 import functools
@@ -115,8 +116,15 @@ _BUILDERS = {
 @functools.lru_cache(maxsize=256)
 def _matrix(kind: str, n: int, kept: int, norm: str,
             device: torch.device) -> torch.Tensor:
-    """One cached (2, rows, cols) float32 matrix on ``device``."""
-    return torch.from_numpy(_BUILDERS[kind](n, kept, norm)).to(device)
+    """One cached (2, rows, cols) float32 matrix on ``device``.
+
+    Built outside inference mode whatever mode the caller is in: a matrix
+    first built by a served forward (``torch.inference_mode``) would
+    otherwise be an inference tensor, which a later training forward at the
+    same sizes cannot save for its backward.
+    """
+    with torch.inference_mode(False):
+        return torch.from_numpy(_BUILDERS[kind](n, kept, norm)).to(device)
 
 
 def _axis_complex_matmul(xr, xi, d: torch.Tensor, axis: int):

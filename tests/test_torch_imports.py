@@ -42,6 +42,11 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/models/fno.py",
         "neuraloperator_tpu_torch/serving.py",
         "neuraloperator_tpu_torch/convert.py",
+        "neuraloperator_tpu_torch/losses/data_losses.py",
+        "neuraloperator_tpu_torch/losses/differentiation.py",
+        "neuraloperator_tpu_torch/training/optimizer.py",
+        "neuraloperator_tpu_torch/training/trainer.py",
+        "neuraloperator_tpu_torch/data/datasets/tensor_dataset.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -91,6 +96,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card):
         CompiledForward(model, torch.zeros(1, 1, 8, 8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.convert_flax_params({}, {})
+    from neuraloperator_tpu_torch.training import Trainer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model=model, n_epochs=1)
     served = CompiledForward(model, torch.zeros(1, 1, 8, 8), device="cpu")
     assert served(torch.zeros(1, 1, 8, 8)).device.type == "cpu"
 

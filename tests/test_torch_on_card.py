@@ -7,8 +7,12 @@ has none; ``tests/conftest.py`` imports JAX, so run it there with
     python -m pytest --noconftest -q tests/test_torch_on_card.py
 
 Tolerances: relative l2 <= 1e-5 (f32 operands) and 1e-3 (bf16 operands)
-against the plain version on the same operands; the served FNO on the card
-against the same weights on the CPU: relative l2 <= 1e-5 (f32, TF32 off).
+for each kernel (K1, K2, K3) against its plain version on the same
+operands; the served FNO on the card against the same weights on the CPU:
+relative l2 <= 1e-5 (f32, TF32 off). Gradients of a small FNO on the card
+against the same model's CPU gradients: relative l2 <= 1e-4 per parameter
+(f32 throughout, but a gradient sums over the batch and every grid point in
+another order on each device, through 2 layers of DFT matmuls).
 """
 
 import json
@@ -88,3 +92,72 @@ def test_served_fno_matches_the_cpu(card):
     ref = cpu_served(x)
     assert y.shape == ref.shape == (3, 1, 64, 64)
     assert float((y.double() - ref.double()).norm() / ref.double().norm()) <= 1e-5
+
+
+def _parts(g, dtype, *shape, scale=1.0):
+    return tuple((scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,I,O,M",
+    [
+        (1, 64, 64, 2112), (8, 64, 64, 2112),
+        (5, 7, 9, 100),     # channel tails, O not a multiple of the load batch
+        (13, 66, 20, 77),   # two batch tiles, ragged mode tile
+        (3, 9, 70, 33),     # I not a multiple of the channel groups
+    ],
+)
+def test_backward_kernels_match_plain(card, dtype, B, I, O, M):
+    g = torch.Generator(device="cuda").manual_seed(B * 1000 + M + 7)
+    w_std = (2 / (I + O)) ** 0.5 / 2 ** 0.5
+    x = _parts(g, dtype, B, I, M)
+    w = _parts(g, dtype, I, O, M, scale=w_std)
+    grad = _parts(g, dtype, B, O, M)
+    before = (tsc.mode_contraction_dx.launches, tsc.mode_contraction_dw.launches)
+    dxr, dxi = tsc.mode_contraction_dx(*grad, *w)
+    dwr, dwi = tsc.mode_contraction_dw(*x, *grad)
+    torch.cuda.synchronize()
+    assert (tsc.mode_contraction_dx.launches, tsc.mode_contraction_dw.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dxr.dtype == dwr.dtype == torch.float32
+    assert dxr.shape == (B, I, M) and dwr.shape == (I, O, M)
+    assert _rel_l2(dxr, dxi, *tsc.mode_contraction_dx_reference(*grad, *w)) <= TOL[dtype]
+    assert _rel_l2(dwr, dwi, *tsc.mode_contraction_dw_reference(*x, *grad)) <= TOL[dtype]
+
+
+def test_backward_kernels_refuse_strided_operands(card):
+    g = torch.randn(2, 4, 40, device="cuda")
+    w = torch.randn(8, 4, 40, device="cuda")
+    x = torch.randn(2, 8, 40, device="cuda")
+    strided_g = torch.randn(2, 40, 4, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsc.mode_contraction_dx(strided_g, g, w, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsc.mode_contraction_dw(x, x, strided_g, g)
+
+
+def test_fno_gradients_on_the_card_match_the_cpu(card):
+    """Every parameter, the spectral weights included, gets a gradient on the
+    card, equal to the same model's CPU gradient; the backward launches K2
+    and K3 once per spectral layer."""
+    meta = json.loads(METADATA.read_text())
+    meta["init_kwargs"].update(n_modes=[16, 16], hidden_channels=16, n_layers=2)
+    model = model_from_metadata(meta, device="cuda", generator=torch.Generator().manual_seed(0))
+    cpu_model = model_from_metadata(meta, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gen = torch.Generator().manual_seed(2)
+    x, y = torch.randn(4, 1, 64, 64, generator=gen), torch.randn(4, 1, 64, 64, generator=gen)
+    launches = [getattr(tsc, n, None) for n in ("mode_contraction_dx", "mode_contraction_dw")]
+    before = [getattr(fn, "launches", 0) for fn in launches]
+    (model(x.cuda()) - y.cuda()).square().mean().backward()
+    torch.cuda.synchronize()
+    (cpu_model(x) - y).square().mean().backward()
+    cpu_grads = dict(cpu_model.named_parameters())
+    for name, p in model.named_parameters():
+        assert p.grad is not None, f"{name} got no gradient on the card"
+        ref = cpu_grads[name].grad.double()
+        err = float((p.grad.cpu().double() - ref).norm() / ref.norm())
+        assert err <= 1e-4, f"{name}: rel l2 {err}"
+    assert [fn.launches - b for fn, b in zip(launches, before)] == [2, 2]

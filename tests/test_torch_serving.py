@@ -122,3 +122,15 @@ def test_compiled_forward_refuses_what_it_cannot_serve():
     for option in ({"quantize": "int8"}, {"param_dtype": torch.bfloat16}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             CompiledForward(model, torch.from_numpy(example), device="cpu", **option)
+
+
+def test_serving_then_training_in_one_process():
+    """A served forward runs in inference mode and is the first to build the
+    DFT matrices; a training forward and backward at the same sizes in the
+    same process must still work."""
+    _, _, model, example = _small_served_pair(res=(12, 20))
+    CompiledForward(model, torch.from_numpy(example), batch_sizes=(2,), device="cpu")
+    x = torch.from_numpy(_rand(4, 2, *example.shape[1:]))
+    model.train()
+    model(x).square().mean().backward()
+    assert all(p.grad is not None for p in model.parameters())
