@@ -12,7 +12,10 @@ Phases, each printed with its elapsed seconds as it goes:
 3. kernels: runs each kernel (K1 forward contraction, K2 its input
    gradient, K3 its weight gradient) against its plain PyTorch version at
    the flagship shapes, and times the kernel, the plain version and one
-   library call with CUDA events beside the kernel's bound;
+   library call with CUDA events beside the kernel's bound; K3 is also
+   checked at a ragged shape and at one whose slices do not fit in shared
+   memory, each printed with the schedule and load path it took, and two
+   of its launches on the same inputs must agree bit for bit;
 4. serve: builds the flagship NS-128 FNO (``artifacts/ns128_v2``) at full
    width with seeded weights and the checkpoint's normalizers, serves
    requests through ``CompiledForward``, checks every answer, K1's launch
@@ -62,6 +65,8 @@ CHANNELS, MODES = 64, 64 * 33
 TRAIN_BATCH = 8
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 SERVE_TOL = 1e-4
+# K3 checked off the flagship shape: (B, (I, O), M)
+K3_EDGE_SHAPES = ((13, (66, 20), 77), (32, (128, 128), MODES))
 REQUESTS = (3, 1, 8, 3, 8, 1)
 BUCKETS = (1, 8)
 
@@ -98,8 +103,10 @@ def rel_l2(ar, ai, br, bi) -> float:
     return float((num / (br ** 2 + bi ** 2).sum()).sqrt())
 
 
-def time_ms(fn, arg_sets, iters: int) -> float:
-    """Mean ms per call by CUDA events.
+def time_ms(fn, arg_sets, iters: int, host: bool = False):
+    """Mean ms per call by CUDA events (and, with ``host``, also the host's
+    ms per call to enqueue them: when it nears the device time, the host
+    sets the pace).
 
     The calls walk ``arg_sets`` round robin; the sets together exceed the
     L2 cache, so every call reads its operands from device memory, as each
@@ -111,11 +118,14 @@ def time_ms(fn, arg_sets, iters: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for k in range(iters):
         fn(*arg_sets[k % len(arg_sets)])
+    host_ms = 1e3 * (time.perf_counter() - t0) / iters
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    return (ms, host_ms) if host else ms
 
 
 # One packed einsum per kernel: the four real products of the complex
@@ -162,11 +172,15 @@ def kernel_specs():
     }
 
 
-def check_kernel(name: str, batch: int, dtype: torch.dtype) -> dict:
-    """One kernel against its plain version at the flagship shape, and its times."""
+def check_kernel(name: str, batch: int, dtype: torch.dtype, channels=None, modes=None,
+                 timed: bool = True) -> dict:
+    """One kernel against its plain version (at the flagship shape unless
+    ``channels`` = (I, O) and ``modes`` say otherwise), and its times."""
+    from neuraloperator_tpu_torch.ops import spectral_contraction as tsc
+
     spec = kernel_specs()[name]
-    I = O = CHANNELS
-    M = MODES
+    I, O = channels or (CHANNELS, CHANNELS)
+    M = modes or MODES
     dims = (batch, I, O, M)
     size = torch.finfo(dtype).bits // 8
     a_shape, b_shape, out_shape = spec["a"](*dims), spec["b"](*dims), spec["out"](*dims)
@@ -187,12 +201,25 @@ def check_kernel(name: str, batch: int, dtype: torch.dtype) -> dict:
     pr, pi = spec["plain"](*sets[0])
     err = rel_l2(kr, ki, pr, pi)
     max_abs = float(torch.maximum((kr - pr).abs().max(), (ki - pi).abs().max()))
-    label = f"{name} B={batch} {str(dtype).replace('torch.', '')}"
-    log(f"{label}: rel_l2 {err:.3e} (tol {KERNEL_TOL[dtype]:.0e}), max_abs {max_abs:.3e}")
+    label = f"{name} B={batch} I={I} O={O} M={M} {str(dtype).replace('torch.', '')}"
+    path = {}
+    if name == "mode_contraction_dw":
+        # K3 sums the batch in one thread, in order: two launches agree bit for bit
+        again = spec["fn"](*sets[0])
+        torch.cuda.synchronize()
+        if not (torch.equal(again[0], kr) and torch.equal(again[1], ki)):
+            raise AssertionError(f"{label}: two launches on the same inputs differ")
+        path = tsc.mode_contraction_dw_plan(*sets[0])
+    log(f"{label}: rel_l2 {err:.3e} (tol {KERNEL_TOL[dtype]:.0e}), max_abs {max_abs:.3e}"
+        + (f"; path {path}, two launches bit-identical" if path else ""))
     if not err <= KERNEL_TOL[dtype]:
         raise AssertionError(f"{label} disagrees with its plain version: rel_l2 {err}")
+    if not timed:
+        return {"batch": batch, "dtype": str(dtype).replace("torch.", ""),
+                "shape": {"B": batch, "I": I, "O": O, "M": M}, "rel_l2": err,
+                "max_abs_err": max_abs, "path": path}
 
-    ms = time_ms(spec["fn"], sets, iters=60)
+    ms, host_ms = time_ms(spec["fn"], sets, iters=60, host=True)
     plain_ms = time_ms(spec["plain"], sets, iters=20)
     library_ms = time_ms(spec["library"], [spec["pack"](s) for s in sets], iters=20)
     flops = 8 * batch * I * O * M
@@ -202,12 +229,14 @@ def check_kernel(name: str, batch: int, dtype: torch.dtype) -> dict:
         "batch": batch, "dtype": str(dtype).replace("torch.", ""),
         "shape": {"B": batch, "I": I, "O": O, "M": M},
         "rel_l2": err, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bytes_s, ops_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
         "bytes": in_bytes + out_bytes, "flops": flops,
     }
-    log(f"{label}: kernel {ms:.4f} ms, bound {result['bound_ms']:.4f} ms "
+    if path:
+        result["path"] = path
+    log(f"{label}: kernel {ms:.4f} ms (host {host_ms:.4f} ms per call), bound {result['bound_ms']:.4f} ms "
         f"({result['bound_by']}), plain {plain_ms:.4f} ms, packed einsum {library_ms:.4f} ms")
     return result
 
@@ -518,10 +547,21 @@ def main() -> None:
     variants += [dict(name=name, **check_kernel(name, TRAIN_BATCH, dt))
                  for name in ("mode_contraction_dx", "mode_contraction_dw")
                  for dt in (torch.float32, torch.bfloat16)]
+    k3 = {v["dtype"]: v["ms"] for v in variants
+          if v["name"] == "mode_contraction_dw" and v["batch"] == TRAIN_BATCH}
+    k1 = next(v["ms"] for v in variants if v["name"] == "mode_contraction"
+              and v["batch"] == TRAIN_BATCH and v["dtype"] == "float32")
+    log(f"K3 at B={TRAIN_BATCH}: f32 {k3['float32']:.4f} ms, bf16 {k3['bfloat16']:.4f} ms; "
+        f"K3 f32 / K1 f32 = {k3['float32'] / k1:.3f}")
+    # K3 off the flagship shape: a ragged mode tile, and slices too large to
+    # stay resident in shared memory (checked, not timed)
+    k3_edges = [check_kernel("mode_contraction_dw", B, dt, channels=ch, modes=m, timed=False)
+                for B, ch, m in K3_EDGE_SHAPES for dt in (torch.float32, torch.bfloat16)]
     served = serve()
     trained = train()
 
     kernels = kernel_line(variants, served, trained)
+    next(k for k in kernels if k["name"] == "mode_contraction_dw")["edge_checks"] = k3_edges
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
         f"train step {trained['step_ms']:.2f} ms, peak {trained['peak_mib']:.0f} MiB")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,15 +35,10 @@
 //   the K contracted channels keeping its BT * NT complex sums in
 //   registers; a is small next to w and is re-read through L1/L2 by the
 //   threads of the other output channels.
-// * K3 writes the weight-sized result (`weight_grad_kernel`). A thread owns
-//   one mode and a 4 x 4 tile of (input, output) channels and loops over
-//   the whole batch itself, so the batch reduction needs no atomics and no
-//   second pass, and its result is the same from run to run. The block
-//   (32 modes x 16 x 8 channels) stages its x and g rows in shared memory,
-//   4 batch rows at a time, so each value crosses from L2 once per block
-//   instead of once per warp that uses it. (A first version without
-//   staging, each thread one input channel and 8 output channels reading x
-//   and g straight from global memory, ran at 10x its bound.)
+// * K3 writes the weight-sized result (`weight_grad_kernel`): a
+//   persistent grid whose blocks keep a mode tile's x and g slices in
+//   shared memory (cp.async copies) and stream dw out from registers; see
+//   the note at its section below.
 // * Bytes in flight (K1/K2): a thread issues the loads of S contracted
 //   channels before the FMAs that use them, so each warp keeps S times more
 //   bytes in flight than a load-then-use loop. NT and S are chosen per batch
@@ -58,7 +53,10 @@
 //   tails are masked. The kernels launch on the caller's stream and
 //   allocate nothing; the caller allocates the outputs.
 
+#include <algorithm>
 #include <cstdint>
+#include <mutex>
+#include <vector>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -218,142 +216,481 @@ int launch_contraction(const void* ar, const void* ai, const void* wr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3 tiles: a block owns 32 modes x 16 input channels x 8 output channels;
-// each of its 256 threads owns one mode and a 4 x 4 (i, o) tile, with
-// threadIdx.y = (input group) * 2 + (output group).
-constexpr int kDwTileI = 4;
-constexpr int kDwTileO = 4;
-constexpr int kDwGroupsO = 2;
-constexpr int kDwBlockI = kDwTileI * (kChannelGroups / kDwGroupsO);  // 16
-constexpr int kDwBlockO = kDwTileO * kDwGroupsO;                     // 8
-constexpr int kDwBatchChunk = 4;  // batch rows staged per pass
+// ------------------------------------------------------------------ K3
+//
+// dw[i, o, m] = sum_b conj(x[b, i, m]) * g[b, o, m], written for Hopper.
+//
+// Work split. A mode tile is 16 consecutive modes. Its output is the
+// (I, O, 16) block of dw; its inputs are the (B, I, 16) slice of x and the
+// (B, O, 16) slice of g. A sub-tile is 32 input x 16 output channels of a
+// mode tile: one block of 256 threads (8 warps) computes it, a warp owning
+// 4 input channels and a thread 4 consecutive modes (lane % 4) of 2 output
+// channels (o = lane / 4 and lane / 4 + 8 within the sub-tile), so a thread
+// keeps 4 x 2 x 4 complex sums in registers and sums over the whole batch
+// itself, in ascending b: no atomics, no second pass, the same result from
+// run to run.
+//
+// Persistent grid. The launcher starts min(work units, SMs x blocks per SM)
+// blocks (the SM count and the occupancy are queried, not assumed); block k
+// walks units k, k + grid, k + 2 grid, ... Stores are plain st.global from
+// registers (16-byte vectors, streaming cache hint), so a warp goes on to
+// the FMAs of its next sub-tile while the stores of the last one drain:
+// the 69.2 MB of the flagship's dw leave at an even rate through the life
+// of each block instead of in a burst at the end of each wave. (TMA bulk
+// stores from a shared-memory staging buffer were the alternative; they
+// cost 32 KB of shared memory, a barrier per sub-tile and a second copy of
+// every output value, for stores that are already full 64-byte runs.)
+//
+// Two schedules, chosen per call by the launcher:
+// * Resident (B * (I + O) rows of the mode tile fit in kDwResidentBytes of
+//   shared memory; the flagship, B = 8, I = O = 64, takes 128 KB in f32 and
+//   64 KB in bf16): a unit is a mode tile. The block copies the tile's whole
+//   x and g slices into shared memory once and walks every sub-tile from
+//   there, so each input value crosses from L2 into an SM once. The copies
+//   start at the beginning of the tile in the order the sub-tiles need
+//   them, one cp.async group per channel block (x's first input block with
+//   g's first output block, then g's other output blocks, then x's other
+//   input blocks), and each sub-tile waits only for the groups it reads.
+// * Streamed (larger B, I or O): a unit is one sub-tile of one mode tile,
+//   and the block walks its batch in chunks of 8 rows through two stages
+//   of shared memory (the next chunk's copies in flight while this one is
+//   summed; 96 KB in f32). Each x value then crosses from L2 ceil(O / 16)
+//   times and each g value ceil(I / 32) times (8 and 4 at B = 32,
+//   I = O = 128); consecutive units share a mode tile, so the re-reads hit
+//   L2.
+//
+// Two load paths, a template flag of the same kernel:
+// * aligned (every plane's base and row stride M * sizeof(T) a multiple of
+//   16 bytes; the flagship's M = 2112): 16-byte cp.async.cg copies, modes
+//   past M zero-filled by the copy's source size, 16-byte vector stores;
+// * unaligned (M = 77 or 33, say): plain element loads into shared memory
+//   and element stores, masked at M.
+// (TMA loads were the alternative for the aligned path: they would need a
+// tensor map encoded on the host per call (cuTensorMapEncodeTiled) and
+// mbarrier waits, to move the same 16-byte-aligned rows that one cp.async
+// per thread already moves with the copies in flight; the loads are 17 MB
+// of the flagship's 86.5 MB.)
+// The operands stay in their own type in shared memory (bf16 halves the
+// bytes staged) and are widened to f32 as they are read from there. (A
+// widening placed right after a masked global load, as a staging loop
+// through registers does, holds back the next instruction until that
+// load's data arrives, so the loads go out one at a time; the copies here
+// keep all of them in flight.) The FMAs are f32 on the CUDA cores, exact
+// for bf16 operands and within 1e-5 of the plain f32 version (TF32 would
+// not be).
+//
+// Shared-memory rows. A staged row is one (b, channel) pair at the tile's
+// 16 modes: its real and its imaginary part, 16 values each. The 8 output
+// channels a warp reads at once are 8 rows: for f32 each row is 128 bytes
+// and starts at bank 0, so odd channels store the imaginary part first;
+// for bf16 rows are 64 bytes and the swap follows the channel's second
+// bit. A warp's read of 8 rows then takes the fewest wavefronts (4 in f32,
+// 2 in bf16); x's rows are read by all 8 lane groups at once (a broadcast).
 
-// Stage rows [b0, b0 + kDwBatchChunk) x [c0, c0 + ROWS) of a (B, C, M)
-// operand at the block's 32 modes (this thread's is m) into shared memory,
-// widened to f32, with zeros past B, C and M (they add nothing to the sums).
-template <typename T, int ROWS>
-__device__ __forceinline__ void stage_rows(
-    const T* __restrict__ re, const T* __restrict__ im, int B, int C,
-    int64_t mm, int m, int b0, int c0, float (&s_re)[kDwBatchChunk][ROWS][kModesPerBlock],
-    float (&s_im)[kDwBatchChunk][ROWS][kModesPerBlock]) {
-  constexpr int kRows = kDwBatchChunk * ROWS;
-  static_assert(kRows % kChannelGroups == 0, "rows must split over the channel groups");
-  float v_re[kRows / kChannelGroups], v_im[kRows / kChannelGroups];
-#pragma unroll
-  for (int k = 0; k < kRows / kChannelGroups; ++k) {  // all loads first
-    const int r = k * kChannelGroups + threadIdx.y;
-    const int b = b0 + r / ROWS, c = c0 + r % ROWS;
-    v_re[k] = 0.f;
-    v_im[k] = 0.f;
-    if (m < mm && b < B && c < C) {
-      const int64_t j = (static_cast<int64_t>(b) * C + c) * mm + m;
-      v_re[k] = widen(re[j]);
-      v_im[k] = widen(im[j]);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kRows / kChannelGroups; ++k) {
-    const int r = k * kChannelGroups + threadIdx.y;
-    s_re[r / ROWS][r % ROWS][threadIdx.x] = v_re[k];
-    s_im[r / ROWS][r % ROWS][threadIdx.x] = v_im[k];
+constexpr int kDwModes = 16;    // modes per mode tile
+constexpr int kDwQuad = 4;      // consecutive modes per thread
+constexpr int kDwWarps = 8;
+constexpr int kDwThreads = 32 * kDwWarps;
+constexpr int kDwTileI = 4;     // input channels per warp (and thread)
+constexpr int kDwTileO = 2;     // output channels per thread
+constexpr int kDwGroupsO = 32 / (kDwModes / kDwQuad);  // 8 lane groups
+constexpr int kDwBlockI = kDwWarps * kDwTileI;          // 32 per sub-tile
+constexpr int kDwBlockO = kDwGroupsO * kDwTileO;        // 16 per sub-tile
+constexpr int kDwRow = 2 * kDwModes;  // elements of a staged row
+constexpr int kDwBatchChunk = 8;      // batch rows per stage when streamed
+constexpr int64_t kDwResidentBytes = 192 * 1024;
+
+// Which half of a staged row holds the real part of channel c (see above).
+template <typename T>
+__device__ __forceinline__ int dw_swap(int c) {
+  return (sizeof(T) == 4 ? c : c >> 1) & 1;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most n of this thread's copy groups are pending; past 7 it
+// waits for 7, which is only stricter.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
   }
 }
 
-// dw[i, o, m] = sum_b conj(x[b, i, m]) * g[b, o, m]. The block stages the
-// x and g rows of its tile for kDwBatchChunk batch rows at a time in shared
-// memory (each value is loaded from L2 once per block, coalesced along the
-// modes) and every thread accumulates its 4 x 4 tile from there.
-// blockIdx.x walks the output-channel tiles fastest, then the input-channel
-// tiles, so the blocks that share an x or g slice run together and find it
-// in L2; blockIdx.y is the mode tile.
 template <typename T>
-__global__ void __launch_bounds__(kModesPerBlock * kChannelGroups)
+__device__ __forceinline__ T zero_value();
+template <>
+__device__ __forceinline__ float zero_value<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_value<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// Copy channels [c0, c0 + nc) x batch rows [b0, b0 + nb) of a (B, C, M)
+// operand at modes [m0, m0 + 16) into staged rows: (b - b0, c - c0) goes to
+// dst + ((b - b0) * ld + c - c0) * kDwRow. Channels past C and modes past M
+// are zeros. ALIGNED starts cp.async copies (the caller commits and waits);
+// otherwise the values are stored before it returns.
+template <typename T, bool ALIGNED>
+__device__ __forceinline__ void stage_rows(T* dst, int ld,
+                                           const T* __restrict__ re,
+                                           const T* __restrict__ im, int C,
+                                           int M, int b0, int nb, int c0,
+                                           int nc, int m0) {
+  constexpr int kVec = ALIGNED ? 16 / sizeof(T) : 1;  // elements per copy
+  constexpr int kPer = kDwModes / kVec;               // copies per half row
+  const int n = nb * nc * 2 * kPer;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int e = k % kPer;
+    int r = k / kPer;
+    const int part = r & 1;  // 0 real, 1 imaginary
+    r >>= 1;
+    const int c = r % nc, b = r / nc;
+    const int ch = c0 + c, m = m0 + e * kVec;
+    const bool valid = ch < C && m < M;
+    const T* plane = part ? im : re;
+    const int64_t j = (static_cast<int64_t>(b0 + b) * C + ch) * M + m;
+    T* to = dst + (b * ld + c) * kDwRow + (part ^ dw_swap<T>(ch)) * kDwModes +
+            e * kVec;
+    if (ALIGNED) {
+      cp_async16(to, valid ? plane + j : plane, valid);
+    } else {
+      *to = valid ? plane[j] : zero_value<T>();
+    }
+  }
+}
+
+__device__ __forceinline__ float4 load_quad(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load_quad(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// acc += conj(x) * g = (x_r g_r + x_i g_i) + i (x_r g_i - x_i g_r), per mode.
+__device__ __forceinline__ void cmac(float& ar, float& ai, float xr, float xi,
+                                     float gr, float gi) {
+  ar = fmaf(xr, gr, ar);
+  ar = fmaf(xi, gi, ar);
+  ai = fmaf(xr, gi, ai);
+  ai = fmaf(-xi, gr, ai);
+}
+
+using DwAcc = float4[kDwTileI][kDwTileO];
+
+// Sum nb staged batch rows into a thread's sums. xs is the staged row of
+// the thread's first input channel (global index xc) at batch row 0, with
+// ldx rows per batch row; gs, gc and ldg likewise for its first output
+// channel, the second sitting kDwGroupsO rows further. q is the thread's
+// mode quad.
+template <typename T>
+__device__ __forceinline__ void accumulate_dw(const T* xs, int ldx, int xc,
+                                              const T* gs, int ldg, int gc,
+                                              int nb, int q, DwAcc& acc_r,
+                                              DwAcc& acc_i) {
+  for (int b = 0; b < nb; ++b) {
+    float4 g_r[kDwTileO], g_i[kDwTileO];
+#pragma unroll
+    for (int c = 0; c < kDwTileO; ++c) {
+      const T* row = gs + (b * ldg + c * kDwGroupsO) * kDwRow + q * kDwQuad;
+      const int s = dw_swap<T>(gc + c * kDwGroupsO);
+      g_r[c] = load_quad(row + s * kDwModes);
+      g_i[c] = load_quad(row + (1 - s) * kDwModes);
+    }
+#pragma unroll
+    for (int a = 0; a < kDwTileI; ++a) {
+      const T* row = xs + (b * ldx + a) * kDwRow + q * kDwQuad;
+      const int s = dw_swap<T>(xc + a);
+      const float4 x_r = load_quad(row + s * kDwModes);
+      const float4 x_i = load_quad(row + (1 - s) * kDwModes);
+#pragma unroll
+      for (int c = 0; c < kDwTileO; ++c) {
+        float4& r = acc_r[a][c];
+        float4& i = acc_i[a][c];
+        cmac(r.x, i.x, x_r.x, x_i.x, g_r[c].x, g_i[c].x);
+        cmac(r.y, i.y, x_r.y, x_i.y, g_r[c].y, g_i[c].y);
+        cmac(r.z, i.z, x_r.z, x_i.z, g_r[c].z, g_i[c].z);
+        cmac(r.w, i.w, x_r.w, x_i.w, g_r[c].w, g_i[c].w);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(DwAcc& acc_r, DwAcc& acc_i) {
+#pragma unroll
+  for (int a = 0; a < kDwTileI; ++a) {
+#pragma unroll
+    for (int c = 0; c < kDwTileO; ++c) {
+      acc_r[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      acc_i[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// Write a thread's sums: input channels i0 + a, output channels
+// o0 + c * kDwGroupsO, modes m .. m + 3 (masked at I, O and M).
+template <bool ALIGNED>
+__device__ __forceinline__ void store_dw(float* __restrict__ dw_r,
+                                         float* __restrict__ dw_i, int I,
+                                         int O, int M, int i0, int o0, int m,
+                                         const DwAcc& acc_r,
+                                         const DwAcc& acc_i) {
+#pragma unroll
+  for (int a = 0; a < kDwTileI; ++a) {
+#pragma unroll
+    for (int c = 0; c < kDwTileO; ++c) {
+      const int i = i0 + a, o = o0 + c * kDwGroupsO;
+      if (i >= I || o >= O || m >= M) continue;
+      const int64_t j = (static_cast<int64_t>(i) * O + o) * M + m;
+      if (ALIGNED) {  // M is a multiple of 4: the quad is whole
+        __stcs(reinterpret_cast<float4*>(dw_r + j), acc_r[a][c]);
+        __stcs(reinterpret_cast<float4*>(dw_i + j), acc_i[a][c]);
+      } else {
+        const float vr[4] = {acc_r[a][c].x, acc_r[a][c].y, acc_r[a][c].z, acc_r[a][c].w};
+        const float vi[4] = {acc_i[a][c].x, acc_i[a][c].y, acc_i[a][c].z, acc_i[a][c].w};
+#pragma unroll
+        for (int e = 0; e < kDwQuad; ++e) {
+          if (m + e < M) {
+            dw_r[j + e] = vr[e];
+            dw_i[j + e] = vi[e];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, bool RESIDENT, bool ALIGNED>
+__global__ void __launch_bounds__(kDwThreads, 1)
     weight_grad_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                        const T* __restrict__ gr, const T* __restrict__ gi,
                        float* __restrict__ dw_r, float* __restrict__ dw_i,
                        int B, int I, int O, int M) {
-  __shared__ float sx_r[kDwBatchChunk][kDwBlockI][kModesPerBlock];
-  __shared__ float sx_i[kDwBatchChunk][kDwBlockI][kModesPerBlock];
-  __shared__ float sg_r[kDwBatchChunk][kDwBlockO][kModesPerBlock];
-  __shared__ float sg_i[kDwBatchChunk][kDwBlockO][kModesPerBlock];
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  T* smem = reinterpret_cast<T*>(dw_smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q = lane % (kDwModes / kDwQuad), og = lane / (kDwModes / kDwQuad);
+  const int n_ib = (I + kDwBlockI - 1) / kDwBlockI;
+  const int n_ob = (O + kDwBlockO - 1) / kDwBlockO;
+  const int n_mt = (M + kDwModes - 1) / kDwModes;
+  DwAcc acc_r, acc_i;
 
-  const int o_tiles = (O + kDwBlockO - 1) / kDwBlockO;
-  const int i0 = (blockIdx.x / o_tiles) * kDwBlockI;
-  const int o0 = (blockIdx.x % o_tiles) * kDwBlockO;
-  const int m = blockIdx.y * kModesPerBlock + threadIdx.x;
-  const int ti = (threadIdx.y / kDwGroupsO) * kDwTileI;  // within the block tile
-  const int to = (threadIdx.y % kDwGroupsO) * kDwTileO;
-  const int64_t mm = M;
-
-  float acc_r[kDwTileI][kDwTileO];
-  float acc_i[kDwTileI][kDwTileO];
-#pragma unroll
-  for (int a = 0; a < kDwTileI; ++a) {
-#pragma unroll
-    for (int c = 0; c < kDwTileO; ++c) {
-      acc_r[a][c] = 0.f;
-      acc_i[a][c] = 0.f;
-    }
-  }
-  for (int b0 = 0; b0 < B; b0 += kDwBatchChunk) {
-    stage_rows<T, kDwBlockI>(xr, xi, B, I, mm, m, b0, i0, sx_r, sx_i);
-    stage_rows<T, kDwBlockO>(gr, gi, B, O, mm, m, b0, o0, sg_r, sg_i);
-    __syncthreads();
-#pragma unroll
-    for (int b = 0; b < kDwBatchChunk; ++b) {
-      float a_r[kDwTileI], a_i[kDwTileI], c_r[kDwTileO], c_i[kDwTileO];
-#pragma unroll
-      for (int a = 0; a < kDwTileI; ++a) {
-        a_r[a] = sx_r[b][ti + a][threadIdx.x];
-        a_i[a] = sx_i[b][ti + a][threadIdx.x];
+  if (RESIDENT) {
+    const int ipad = n_ib * kDwBlockI, opad = n_ob * kDwBlockO;
+    T* xs = smem;                                  // (B, ipad) rows
+    T* gs = smem + static_cast<int64_t>(B) * ipad * kDwRow;  // (B, opad) rows
+    const int groups = n_ob + n_ib - 1;
+    for (int mt = blockIdx.x; mt < n_mt; mt += gridDim.x) {
+      const int m0 = mt * kDwModes;
+      for (int k = 0; k < groups; ++k) {  // in the order of first use below
+        if (k < n_ob) {
+          if (k == 0) {
+            stage_rows<T, ALIGNED>(xs, ipad, xr, xi, I, M, 0, B, 0, kDwBlockI, m0);
+          }
+          stage_rows<T, ALIGNED>(gs + k * kDwBlockO * kDwRow, opad, gr, gi, O, M,
+                                 0, B, k * kDwBlockO, kDwBlockO, m0);
+        } else {
+          const int ib = k - n_ob + 1;
+          stage_rows<T, ALIGNED>(xs + ib * kDwBlockI * kDwRow, ipad, xr, xi, I,
+                                 M, 0, B, ib * kDwBlockI, kDwBlockI, m0);
+        }
+        cp_async_commit();
       }
-#pragma unroll
-      for (int c = 0; c < kDwTileO; ++c) {
-        c_r[c] = sg_r[b][to + c][threadIdx.x];
-        c_i[c] = sg_i[b][to + c][threadIdx.x];
-      }
-#pragma unroll
-      for (int a = 0; a < kDwTileI; ++a) {
-#pragma unroll
-        for (int c = 0; c < kDwTileO; ++c) {
-          // conj(x) * g = (x_r g_r + x_i g_i) + i (x_r g_i - x_i g_r)
-          acc_r[a][c] = fmaf(a_r[a], c_r[c], acc_r[a][c]);
-          acc_r[a][c] = fmaf(a_i[a], c_i[c], acc_r[a][c]);
-          acc_i[a][c] = fmaf(a_r[a], c_i[c], acc_i[a][c]);
-          acc_i[a][c] = fmaf(-a_i[a], c_r[c], acc_i[a][c]);
+      int ready = -1;  // groups known to have landed, block-wide
+      for (int ib = 0; ib < n_ib; ++ib) {
+        for (int ob = 0; ob < n_ob; ++ob) {
+          const int need = ib == 0 ? ob : n_ob + ib - 1;
+          if (need > ready) {
+            cp_async_wait_upto(groups - 1 - need);
+            __syncthreads();
+            ready = need;
+          }
+          const int i0 = ib * kDwBlockI + warp * kDwTileI;
+          const int o0 = ob * kDwBlockO + og;
+          zero_acc(acc_r, acc_i);
+          accumulate_dw<T>(xs + i0 * kDwRow, ipad, i0, gs + o0 * kDwRow, opad,
+                           o0, B, q, acc_r, acc_i);
+          store_dw<ALIGNED>(dw_r, dw_i, I, O, M, i0, o0, m0 + q * kDwQuad,
+                            acc_r, acc_i);
         }
       }
+      __syncthreads();  // the next tile's copies overwrite the slices
     }
-    __syncthreads();  // the next pass overwrites the staged rows
-  }
-  if (m >= M) return;
-#pragma unroll
-  for (int a = 0; a < kDwTileI; ++a) {
-    const int i = i0 + ti + a;
-#pragma unroll
-    for (int c = 0; c < kDwTileO; ++c) {
-      const int o = o0 + to + c;
-      if (i < I && o < O) {
-        const int64_t j = (static_cast<int64_t>(i) * O + o) * mm + m;
-        dw_r[j] = acc_r[a][c];
-        dw_i[j] = acc_i[a][c];
+  } else {
+    const int n_bc = (B + kDwBatchChunk - 1) / kDwBatchChunk;
+    const int stage = kDwBatchChunk * (kDwBlockI + kDwBlockO) * kDwRow;
+    const int units = n_mt * n_ib * n_ob;
+    const int mine = units > static_cast<int>(blockIdx.x)
+                         ? (units - blockIdx.x + gridDim.x - 1) / gridDim.x
+                         : 0;
+    const int steps = mine * n_bc;
+    // step s: unit blockIdx.x + (s / n_bc) * gridDim.x, batch chunk s % n_bc;
+    // a unit is (mode tile, input block, output block), output block fastest
+    auto prefetch = [&](int s) {
+      const int u = blockIdx.x + (s / n_bc) * gridDim.x, bc = s % n_bc;
+      const int ob = u % n_ob, ib = (u / n_ob) % n_ib, mt = u / (n_ob * n_ib);
+      const int b0 = bc * kDwBatchChunk, nb = min(kDwBatchChunk, B - b0);
+      T* st = smem + (s & 1) * stage;
+      stage_rows<T, ALIGNED>(st, kDwBlockI, xr, xi, I, M, b0, nb,
+                             ib * kDwBlockI, kDwBlockI, mt * kDwModes);
+      stage_rows<T, ALIGNED>(st + kDwBatchChunk * kDwBlockI * kDwRow, kDwBlockO,
+                             gr, gi, O, M, b0, nb, ob * kDwBlockO, kDwBlockO,
+                             mt * kDwModes);
+      cp_async_commit();
+    };
+    if (steps > 0) prefetch(0);
+    for (int s = 0; s < steps; ++s) {
+      if (s + 1 < steps) {
+        prefetch(s + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
+      __syncthreads();
+      const int u = blockIdx.x + (s / n_bc) * gridDim.x, bc = s % n_bc;
+      const int ob = u % n_ob, ib = (u / n_ob) % n_ib, mt = u / (n_ob * n_ib);
+      const int b0 = bc * kDwBatchChunk, nb = min(kDwBatchChunk, B - b0);
+      const T* st = smem + (s & 1) * stage;
+      const int xl = warp * kDwTileI;  // the thread's rows within the stage
+      const int i0 = ib * kDwBlockI + xl, o0 = ob * kDwBlockO + og;
+      if (bc == 0) zero_acc(acc_r, acc_i);
+      accumulate_dw<T>(st + xl * kDwRow, kDwBlockI, i0,
+                       st + (kDwBatchChunk * kDwBlockI + og) * kDwRow,
+                       kDwBlockO, o0, nb, q, acc_r, acc_i);
+      if (bc == n_bc - 1) {
+        store_dw<ALIGNED>(dw_r, dw_i, I, O, M, i0, o0, mt * kDwModes + q * kDwQuad,
+                          acc_r, acc_i);
+      }
+      __syncthreads();  // step s + 2 copies into this stage
     }
   }
+}
+
+// How K3 runs a shape: which schedule and load path, its shared memory,
+// work units and grid.
+struct DwPlan {
+  int resident, aligned, smem_bytes, units, grid;
+};
+
+template <typename T>
+using DwKernel = void (*)(const T*, const T*, const T*, const T*, float*,
+                          float*, int, int, int, int);
+
+template <typename T>
+DwKernel<T> weight_grad_variant(bool resident, bool aligned) {
+  if (resident) {
+    return aligned ? weight_grad_kernel<T, true, true>
+                   : weight_grad_kernel<T, true, false>;
+  }
+  return aligned ? weight_grad_kernel<T, false, true>
+                 : weight_grad_kernel<T, false, false>;
+}
+
+// The current device's SM count and the blocks of one K3 variant an SM
+// holds at smem bytes of dynamic shared memory, queried on first use and
+// kept, so that a launch makes no device queries.
+int dw_occupancy(const void* kernel, int smem, int* sms, int* per_sm) {
+  struct Seen {
+    const void* kernel;
+    int device, smem, sms, per_sm;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Seen& e : seen) {
+    if (e.kernel == kernel && e.device == dev && e.smem == smem) {
+      *sms = e.sms;
+      *per_sm = e.per_sm;
+      return cudaSuccess;
+    }
+  }
+  // every plan's shared memory is at most kDwResidentBytes
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kDwResidentBytes));
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kDwThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  seen.push_back({kernel, dev, smem, *sms, *per_sm});
+  return cudaSuccess;
+}
+
+template <typename T>
+int plan_weight_grad(int B, int I, int O, int M, bool ptrs_aligned,
+                     DwPlan* plan, DwKernel<T>* kernel) {
+  if (B <= 0 || I <= 0 || O <= 0 || M <= 0) return cudaErrorInvalidValue;
+  const int64_t n_ib = (I + kDwBlockI - 1) / kDwBlockI;
+  const int64_t n_ob = (O + kDwBlockO - 1) / kDwBlockO;
+  const int64_t n_mt = (M + kDwModes - 1) / kDwModes;
+  const int64_t resident_bytes = static_cast<int64_t>(B) *
+                                 (n_ib * kDwBlockI + n_ob * kDwBlockO) *
+                                 kDwRow * sizeof(T);
+  const bool resident = resident_bytes <= kDwResidentBytes;
+  const int64_t units = resident ? n_mt : n_mt * n_ib * n_ob;
+  if (units > 2147483647) return cudaErrorInvalidValue;
+  plan->resident = resident;
+  plan->aligned = ptrs_aligned && (static_cast<int64_t>(M) * sizeof(T)) % 16 == 0;
+  plan->smem_bytes = static_cast<int>(
+      resident ? resident_bytes
+               : 2 * kDwBatchChunk * (kDwBlockI + kDwBlockO) * kDwRow * sizeof(T));
+  plan->units = static_cast<int>(units);
+  *kernel = weight_grad_variant<T>(plan->resident, plan->aligned);
+  int sms = 0, per_sm = 0;
+  const int err = dw_occupancy(reinterpret_cast<const void*>(*kernel),
+                               plan->smem_bytes, &sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  plan->grid = static_cast<int>(
+      std::min<int64_t>(units, static_cast<int64_t>(sms) * per_sm));
+  return cudaSuccess;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
 int launch_weight_grad(const void* xr, const void* xi, const void* gr,
                        const void* gi, void* dw_r, void* dw_i, int B, int I,
                        int O, int M, void* stream) {
-  if (B <= 0 || I <= 0 || O <= 0 || M <= 0) return cudaErrorInvalidValue;
-  const int64_t tiles = static_cast<int64_t>((I + kDwBlockI - 1) / kDwBlockI) *
-                        ((O + kDwBlockO - 1) / kDwBlockO);
-  const int m_tiles = (M + kModesPerBlock - 1) / kModesPerBlock;
-  if (tiles > 2147483647 || m_tiles > 65535) return cudaErrorInvalidValue;
-  const dim3 block(kModesPerBlock, kChannelGroups);
-  const dim3 grid(static_cast<unsigned>(tiles), m_tiles);
-  weight_grad_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool ptrs_aligned = aligned16(xr) && aligned16(xi) && aligned16(gr) &&
+                            aligned16(gi) && aligned16(dw_r) && aligned16(dw_i);
+  DwPlan plan;
+  DwKernel<T> kernel;
+  const int err = plan_weight_grad<T>(B, I, O, M, ptrs_aligned, &plan, &kernel);
+  if (err != cudaSuccess) return err;
+  kernel<<<plan.grid, kDwThreads, plan.smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xr), static_cast<const T*>(xi),
       static_cast<const T*>(gr), static_cast<const T*>(gi),
       static_cast<float*>(dw_r), static_cast<float*>(dw_i), B, I, O, M);
@@ -414,6 +751,33 @@ int nop_mode_contraction_dw_bf16(const void* xr, const void* xi,
                                  void* stream) {
   return launch_weight_grad<__nv_bfloat16>(xr, xi, gr, gi, dw_r, dw_i, B, I,
                                            O, M, stream);
+}
+
+// How K3 would run a shape (as `launch_weight_grad` decides): out[0] 1 for
+// the resident schedule, 0 for the streamed one; out[1] 1 for the aligned
+// (cp.async) load path; out[2] dynamic shared memory in bytes; out[3] work
+// units; out[4] blocks launched. bf16 selects the operand type;
+// ptrs_aligned says whether every plane's base is 16-byte aligned.
+int nop_mode_contraction_dw_plan(int bf16, int B, int I, int O, int M,
+                                 int ptrs_aligned, int* out) {
+  DwPlan plan;
+  int err;
+  if (bf16) {
+    DwKernel<__nv_bfloat16> kernel;
+    err = plan_weight_grad<__nv_bfloat16>(B, I, O, M, ptrs_aligned != 0, &plan,
+                                          &kernel);
+  } else {
+    DwKernel<float> kernel;
+    err = plan_weight_grad<float>(B, I, O, M, ptrs_aligned != 0, &plan, &kernel);
+  }
+  if (err == cudaSuccess) {
+    out[0] = plan.resident;
+    out[1] = plan.aligned;
+    out[2] = plan.smem_bytes;
+    out[3] = plan.units;
+    out[4] = plan.grid;
+  }
+  return err;
 }
 
 const char* nop_error_string(int code) {

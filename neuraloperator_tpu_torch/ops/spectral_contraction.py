@@ -48,6 +48,8 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
+    lib.nop_mode_contraction_dw_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.nop_mode_contraction_dw_plan.restype = ctypes.c_int
     lib.nop_error_string.argtypes = [ctypes.c_int]
     lib.nop_error_string.restype = ctypes.c_char_p
     return lib
@@ -191,6 +193,33 @@ def mode_contraction_dw(xr, xi, gr, gi) -> Parts:
     out = _launch("dw", (xr, xi), (gr, gi), (I, O, M), (B, I, O, M))
     mode_contraction_dw.launches += 1
     return out
+
+
+def mode_contraction_dw_plan(xr, xi, gr, gi) -> dict:
+    """How K3 runs on these CUDA operands, as its launcher decides.
+
+    ``schedule`` is ``"resident"`` (each block keeps a mode tile's x and g
+    slices in shared memory) or ``"streamed"`` (batch chunks through two
+    stages); ``load`` is ``"cp.async"`` (16-byte asynchronous copies, when
+    every plane is 16-byte aligned) or ``"element"``; then the dynamic
+    shared memory, the work units and the blocks launched. Launches nothing.
+    """
+    B, I, O, M = _shapes("dw", (xr, xi), (gr, gi))
+    if xr.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xr.device}")
+    if xr.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16 operands, got {xr.dtype}")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (xr, xi, gr, gi))
+    out = (ctypes.c_int * 5)()
+    lib = _library()
+    with torch.cuda.device(xr.device):
+        err = lib.nop_mode_contraction_dw_plan(
+            int(xr.dtype == torch.bfloat16), B, I, O, M, int(aligned), out)
+    if err != 0:
+        raise RuntimeError(f"K3 plan failed: {lib.nop_error_string(err).decode()} (cudaError {err})")
+    return {"schedule": "resident" if out[0] else "streamed",
+            "load": "cp.async" if out[1] else "element",
+            "smem_bytes": out[2], "units": out[3], "grid": out[4]}
 
 
 mode_contraction.launches = 0

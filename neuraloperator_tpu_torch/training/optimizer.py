@@ -65,7 +65,9 @@ class AdamW(torch.optim.Optimizer):
     ``.grad``; ``lr_scale`` is the per-epoch scheduler factor the
     ``Trainer`` multiplies every update by (in f32, after the cast to the
     parameter's dtype, as the JAX ``Trainer`` does). A parameter without a
-    gradient is left as it is.
+    gradient (``.grad`` is None, as for one that does not reach the loss)
+    takes a zero gradient, as optax gives every leaf one: weight decay and
+    the decaying moments still move it.
     """
 
     def __init__(
@@ -110,12 +112,11 @@ class AdamW(torch.optim.Optimizer):
             b1, b2 = group["betas"]
             b1c, b2c = (_bias_correction(b, self.count) for b in (b1, b2))
             for p in group["params"]:
-                if p.grad is None:
-                    continue
+                g = torch.zeros_like(p) if p.grad is None else p.grad
                 state = self.state[p]
                 if not state:
                     state.update(self._init_state(p))
-                u = self._adam_direction(p.grad, state, b1, b2, b1c, b2c, group["eps"])
+                u = self._adam_direction(g, state, b1, b2, b1c, b2c, group["eps"])
                 # add_decayed_weights, then scale_by_learning_rate
                 u = u + group["weight_decay"] * p
                 u = -lr * u

@@ -198,7 +198,8 @@ class Trainer:
             if self.data_processor is not None and hasattr(self.data_processor, "step"):
                 self.data_processor.step(epoch)
             lr_scale = float(np.float32(getattr(scheduler, "factor", 1.0)))
-            loss_sum = torch.zeros((), device=self.device)
+            # float64 on the device: the JAX Trainer sums Python floats
+            loss_sum = torch.zeros((), dtype=torch.float64, device=self.device)
             n_batches = 0
             for batch in train_loader:
                 loss_sum += train_step(self._put(batch), lr_scale)
@@ -243,11 +244,11 @@ class Trainer:
                              "the rest of losses, training and data")
         if mode != "single_step":
             raise ValueError(f"unknown eval mode {mode!r}")
-        totals: Dict[str, torch.Tensor] = {}
+        totals: Dict[str, torch.Tensor] = {}  # float64, as loss_sum in train
         n_samples = 0
         for batch in loader:
             bsz = len(batch["x"]) if "x" in batch else len(next(iter(batch.values())))
             for k, v in eval_step(self._put(batch)).items():
-                totals[k] = totals[k] + v if k in totals else v
+                totals[k] = totals[k] + v if k in totals else v.double()
             n_samples += bsz
         return {f"{prefix}_{k}": float(v) / max(n_samples, 1) for k, v in totals.items()}

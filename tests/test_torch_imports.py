@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "neuraloperator_tpu")
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "scripts/ab_spectral_contraction.py"]
 
 
 def _imported_modules(path: Path):

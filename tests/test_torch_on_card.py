@@ -107,6 +107,9 @@ def _parts(g, dtype, *shape, scale=1.0):
         (5, 7, 9, 100),     # channel tails, O not a multiple of the load batch
         (13, 66, 20, 77),   # two batch tiles, ragged mode tile
         (3, 9, 70, 33),     # I not a multiple of the channel groups
+        # K3's edges: the CPU-comparison step's batch; slices too large to
+        # stay resident (streamed in batch chunks); more mode tiles than SMs
+        (2, 64, 64, 2112), (32, 128, 128, 2112), (8, 64, 64, 4 * 2112),
     ],
 )
 def test_backward_kernels_match_plain(card, dtype, B, I, O, M):
@@ -125,6 +128,29 @@ def test_backward_kernels_match_plain(card, dtype, B, I, O, M):
     assert dxr.shape == (B, I, M) and dwr.shape == (I, O, M)
     assert _rel_l2(dxr, dxi, *tsc.mode_contraction_dx_reference(*grad, *w)) <= TOL[dtype]
     assert _rel_l2(dwr, dwi, *tsc.mode_contraction_dw_reference(*x, *grad)) <= TOL[dtype]
+    # K3 sums the batch in one thread, in order: a second launch is bit-identical
+    again_r, again_i = tsc.mode_contraction_dw(*x, *grad)
+    assert torch.equal(again_r, dwr) and torch.equal(again_i, dwi)
+
+
+@pytest.mark.parametrize(
+    "dtype,B,I,O,M,schedule,load",
+    [
+        (torch.float32, 8, 64, 64, 2112, "resident", "cp.async"),
+        (torch.bfloat16, 8, 64, 64, 2112, "resident", "cp.async"),
+        (torch.float32, 32, 128, 128, 2112, "streamed", "cp.async"),
+        (torch.float32, 13, 66, 20, 77, "streamed", "element"),
+        (torch.bfloat16, 13, 66, 20, 77, "resident", "element"),
+        (torch.bfloat16, 5, 7, 9, 100, "resident", "element"),  # M * 2 B not a multiple of 16
+    ],
+)
+def test_weight_grad_takes_the_planned_path(card, dtype, B, I, O, M, schedule, load):
+    x = tuple(torch.zeros(B, I, M, device="cuda", dtype=dtype) for _ in range(2))
+    g = tuple(torch.zeros(B, O, M, device="cuda", dtype=dtype) for _ in range(2))
+    plan = tsc.mode_contraction_dw_plan(*x, *g)
+    assert (plan["schedule"], plan["load"]) == (schedule, load)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert min(plan["units"], sms) <= plan["grid"] <= plan["units"]  # persistent
 
 
 def test_backward_kernels_refuse_strided_operands(card):

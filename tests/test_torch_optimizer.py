@@ -161,12 +161,44 @@ def test_adamw_with_a_constant_rate_and_defaults():
 
 
 def test_parameters_without_gradients_are_left_alone():
+    """No parameter is skipped: one without a gradient takes a zero gradient,
+    so at the first step only weight decay moves it (Adam's direction is 0)."""
     p, q = torch.nn.Parameter(torch.ones(3, 2)), torch.nn.Parameter(torch.ones(2))
     opt = topt.adamw(1e-1, weight_decay=0.5).bind([p, q])
     p.grad = torch.ones(3, 2)
     opt.step()
     assert not torch.equal(p.detach(), torch.ones(3, 2))
-    assert torch.equal(q.detach(), torch.ones(2)) and q not in opt.state
+    assert q in opt.state and q.grad is None
+    torch.testing.assert_close(q.detach(), torch.full((2,), 1 - 1e-1 * 0.5), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("policy", ["full", "factored"])
+def test_parameter_outside_the_loss_moves_like_optax(policy):
+    """A parameter that never gets a gradient (``.grad`` None in the port, a
+    zero leaf in optax) is still decayed by optax's AdamW: lr 1e-2, weight
+    decay 0.1, 3 steps take 2.0 to 1.99401. Held at the "full" tolerance
+    of this file; the unused leaf's moments stay exactly zero on both sides."""
+    cfg = SimpleNamespace(learning_rate=1e-2, step_size=1000, gamma=0.5, weight_decay=0.1,
+                          opt_state=policy)
+    init = {"used": np.array([0.5, -1.5, 2.5], np.float32), "unused": np.full((2, 3), 2.0, np.float32)}
+    params = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in init.items()}
+    opt = topt.build_optimizer(cfg).bind(params.values())
+    tx = jopt.build_optimizer(cfg)
+    j_params = {k: jnp.asarray(v) for k, v in init.items()}
+    j_state = tx.init(j_params)
+    rng = np.random.default_rng(7)
+    for _ in range(3):
+        g = rng.standard_normal(3).astype(np.float32)
+        params["used"].grad = torch.from_numpy(g)
+        params["unused"].grad = None
+        opt.step()
+        updates, j_state = tx.update(
+            {"used": jnp.asarray(g), "unused": jnp.zeros((2, 3), jnp.float32)}, j_state, j_params)
+        j_params = optax.apply_updates(j_params, updates)
+    for k in init:
+        np.testing.assert_allclose(params[k].detach().numpy(), np.asarray(j_params[k]),
+                                   rtol=1e-6, atol=1e-9, err_msg=k)
+    np.testing.assert_allclose(params["unused"].detach().numpy(), 1.99401, rtol=1e-5)
 
 
 def test_unported_options_raise():
