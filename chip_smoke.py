@@ -11,17 +11,27 @@ Phases, each printed with its elapsed seconds as it goes:
    and prints nvcc's registers and spills per kernel;
 3. kernels: runs each kernel (K1 forward contraction, K2 its input
    gradient, K3 its weight gradient) against its plain PyTorch version at
-   the flagship shapes, and times the kernel, the plain version and one
-   library call with CUDA events beside the kernel's bound; K3 is also
+   the flagship shapes (K1 also at the eval's batch 16), and times the
+   kernel, the plain version and one library call with CUDA events beside
+   the kernel's bound; K3 is also
    checked at a ragged shape and at one whose slices do not fit in shared
    memory, each printed with the schedule and load path it took, and two
    of its launches on the same inputs must agree bit for bit;
-4. serve: builds the flagship NS-128 FNO (``artifacts/ns128_v2``) at full
-   width with seeded weights and the checkpoint's normalizers, serves
-   requests through ``CompiledForward``, checks every answer, K1's launch
-   count and a batch-3 answer against the same model on the CPU, and probes
-   the latency of each bucket;
-5. train, in the same process after serving: builds the flagship FNO at
+4. serve: loads the published flagship NS-128 FNO (``artifacts/ns128_v2``,
+   the float16 copy of its best weights, evaluated in float32) at full width
+   with the checkpoint's normalizers through ``models.load_flagship``,
+   serves requests through ``CompiledForward``, checks every answer, K1's
+   launch count and a batch-3 answer against the same file's model on the
+   CPU, and probes the latency of each bucket;
+5. eval: regenerates the flagship's test split on the card (40 trajectories
+   of the seeded pseudo-spectral solver, seed 10 000, 128², 50 000 steps
+   each, 2000 pairs) and evaluates the loaded weights on it at batch 16
+   through ``scripts.eval_ns_checkpoint.evaluate``; checks (a) one record
+   of the solver on the card against the CPU, (b) the first 32 pairs'
+   losses on the card against the CPU, (c) rel_l2 and rel_h1 within twice
+   the JAX package's figures for these weights' f32 original, and K1's
+   launch count; last, a torch.profiler table of 200 solver steps;
+6. train, in the same process after serving: builds the flagship FNO at
    full width with seeded weights, seeded 128² pairs (a fixed spectral
    filter of smooth inputs at the checkpoint normalizer's scale) and fitted
    normalizers, runs ``Trainer.train`` for 2 epochs with the flagship's
@@ -31,7 +41,7 @@ Phases, each printed with its elapsed seconds as it goes:
    step on the CPU from the same weights, and compares the loss and every
    gradient; last, a torch.profiler table of two train steps (device time
    by kernel, and the device's idle share of the host-clock window);
-6. prints one ``{"kernels": [...]}`` line, then, as the last line,
+7. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -69,6 +79,27 @@ SERVE_TOL = 1e-4
 K3_EDGE_SHAPES = ((13, (66, 20), 77), (32, (128, 128), MODES))
 REQUESTS = (3, 1, 8, 3, 8, 1)
 BUCKETS = (1, 8)
+# the published weights the serve and eval phases load: the f16 copy, the
+# one checkpoint .chiprunignore lets into the copy sent to the GPU machine
+CHECKPOINT = "best_model_f16"
+
+# the eval phase: scripts/eval_ns_checkpoint.py's protocol on the test split
+# of scripts/generate_ns_data.py (40 trajectories, seed 10 000)
+EVAL_BATCH, EVAL_PAIRS, EVAL_RES = 16, 2000, 128
+# (a) one record (1000 steps) of 2 trajectories, card against CPU: relative
+# l2 per snapshot. Measured 1.7e-7 on an H100 (cuFFT against pocketfft, the
+# same float32 steps), and the CPU port reads 1e-6 against JAX's CPU solver
+# (tests/test_torch_ns_solver.py): 1e-5 admits FFT rounding, not a step the
+# card computes differently.
+SOLVER_TOL = 1e-5
+SOLVER_PROFILE_STEPS = 200
+# (b) the first 32 pairs through evaluate, card against CPU: each figure
+EVAL_CPU_PAIRS, EVAL_CPU_TOL = 32, 1e-4
+# (c) twice the JAX package's figures for the f32 weights (BASELINE.md:
+# rel_l2 0.000232, rel_h1 0.000395). The f16 copy's rounding raises l2 by
+# about 70%; a 0.23% normalizer mismatch alone gives 5.68e-4
+# (BASELINE.md:1078-1084), and wrong weights score orders of magnitude more.
+REL_L2_BOUND, REL_H1_BOUND = 4.6e-4, 7.9e-4
 
 # the training phase: the flagship v2 run's optimizer (scripts/run_flagship_v2.sh)
 OPT = SimpleNamespace(learning_rate=3e-5, weight_decay=1e-4, step_size=50, gamma=0.5,
@@ -262,25 +293,30 @@ def cpu_copy(model, meta):
     return cpu_model
 
 
-def serve() -> dict:
+def load_flagship_on(device: str):
+    """The published flagship: (model, data processor, manifest) on ``device``."""
+    from neuraloperator_tpu_torch.models import load_flagship
+
+    t0 = time.perf_counter()
+    model, processor, manifest = load_flagship(FLAGSHIP, CHECKPOINT, device=device)
+    if processor is None:
+        raise FileNotFoundError(f"no data_processor.json in {FLAGSHIP}")
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    log(f"load: {FLAGSHIP.name}/{CHECKPOINT}.msgpack onto {device} in "
+        f"{time.perf_counter() - t0:.1f} s; parameters {dtypes}; manifest {manifest}")
+    return model, processor
+
+
+def serve(model, processor, cpu_model) -> dict:
     """The flagship FNO served through CompiledForward; returns its numbers."""
-    from neuraloperator_tpu_torch.data.transforms import load_data_processor
-    from neuraloperator_tpu_torch.models import model_from_metadata
     from neuraloperator_tpu_torch.serving import CompiledForward
 
     meta = flagship_meta()
-    t0 = time.perf_counter()
-    model = model_from_metadata(
-        meta, device="cuda", generator=torch.Generator().manual_seed(SEED)
-    )
     n_params = sum(p.numel() for p in model.parameters())
     n_layers = meta["init_kwargs"]["n_layers"]
     log(f"serve: FNO {meta['init_kwargs']['n_modes']} modes, hidden "
         f"{meta['init_kwargs']['hidden_channels']}, {n_layers} layers, {n_params} "
-        f"parameters, seeded weights in {time.perf_counter() - t0:.1f} s")
-    processor = load_data_processor(FLAGSHIP)
-    if processor is None:
-        raise FileNotFoundError(f"no data_processor.json in {FLAGSHIP}")
+        f"parameters, the published weights")
     example = torch.zeros(1, 1, 128, 128)
     normalizers = dict(
         preprocess_fn=processor.in_normalizer.transform,
@@ -315,9 +351,9 @@ def serve() -> dict:
             f"{launches}, expected {expected}"
         )
 
-    # the same model on the CPU, through the plain versions
+    # the same file's model on the CPU, through the plain versions
     batch3 = REQUESTS.index(3)
-    cpu_served = CompiledForward(cpu_copy(model, meta), example, batch_sizes=(3,),
+    cpu_served = CompiledForward(cpu_model, example, batch_sizes=(3,),
                                  device="cpu", **normalizers)
     ref = cpu_served(requests[batch3])
     got = answers[batch3].cpu()
@@ -331,6 +367,91 @@ def serve() -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return {"launches": launches, "latency_ms": latency_ms, "rel_l2_vs_cpu": err,
             "requests": list(REQUESTS), "serve_s": serve_s}
+
+
+def rel_l2_np(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def evaluate_flagship(model, processor, cpu_model) -> dict:
+    """The published weights on their regenerated test split; returns the numbers."""
+    from neuraloperator_tpu_torch.data.datasets import ns_solver
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs, ys = ns_solver.make_nsforcing_split(ev.TEST_TRAJECTORIES, EVAL_RES, ev.TEST_SEED,
+                                            device="cuda", **ev.SOLVER)
+    solver_s = time.perf_counter() - t0
+    steps = round(ev.SOLVER["T"] / ev.SOLVER["dt"])
+    log(f"eval: test split regenerated on the card in {solver_s:.2f} s: "
+        f"{ev.TEST_TRAJECTORIES} trajectories x {steps} steps of {EVAL_RES}², "
+        f"{len(xs)} pairs, max |w| {np.abs(xs).max():.3f}")
+    xs, ys = xs[:EVAL_PAIRS, None], ys[:EVAL_PAIRS, None]
+    if len(xs) != EVAL_PAIRS or not (np.isfinite(xs).all() and np.isfinite(ys).all()):
+        raise AssertionError(f"the split holds {len(xs)} pairs or non-finite values")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    figures = ev.evaluate(model, processor, xs, ys, EVAL_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"eval: {figures['pairs']} pairs at batch {EVAL_BATCH} in {eval_s:.3f} s: "
+        f"rel_l2 {figures['rel_l2']:.6e}, rel_h1 {figures['rel_h1']:.6e}; kernel launches "
+        f"{launches}")
+    expected = {"mode_contraction": n_layers * (EVAL_PAIRS // EVAL_BATCH),
+                "mode_contraction_dx": 0, "mode_contraction_dw": 0}
+    if launches != expected:
+        raise AssertionError(f"the evaluation launched {launches}, expected {expected}")
+
+    # (a) the solver: one record of the split's first 2 trajectories, card vs CPU
+    w0 = ns_solver.gaussian_rf_vorticity(np.random.default_rng(ev.TEST_SEED),
+                                         ev.TEST_TRAJECTORIES, EVAL_RES)[:2]
+    record = {k: v for k, v in ev.SOLVER.items() if k != "T"}
+    t0 = time.perf_counter()
+    card = ns_solver.simulate_navier_stokes_2d(w0, T=ev.SOLVER["record_dt"], device="cuda",
+                                               **record).cpu().numpy()
+    cpu = ns_solver.simulate_navier_stokes_2d(w0, T=ev.SOLVER["record_dt"], device="cpu",
+                                              **record).numpy()
+    solver_err = [rel_l2_np(card[b, 0], cpu[b, 0]) for b in range(2)]
+    log(f"eval (a): one record ({round(ev.SOLVER['record_dt'] / ev.SOLVER['dt'])} steps) of "
+        f"2 trajectories, card vs CPU in {time.perf_counter() - t0:.1f} s: rel_l2 per "
+        f"snapshot {solver_err} (tol {SOLVER_TOL:.0e})")
+    if not max(solver_err) <= SOLVER_TOL:
+        raise AssertionError(f"the solver on the card departs from the CPU: {solver_err}")
+
+    # (b) the first pairs through evaluate, card vs CPU, same weights
+    t0 = time.perf_counter()
+    head = slice(0, EVAL_CPU_PAIRS)
+    on_card = ev.evaluate(model, processor, xs[head], ys[head], EVAL_BATCH, device="cuda")
+    on_cpu = ev.evaluate(cpu_model, processor, xs[head], ys[head], EVAL_BATCH, device="cpu")
+    eval_err = {k: abs(on_card[k] - on_cpu[k]) / abs(on_cpu[k]) for k in ("rel_l2", "rel_h1")}
+    log(f"eval (b): first {EVAL_CPU_PAIRS} pairs, card {on_card} vs CPU {on_cpu} in "
+        f"{time.perf_counter() - t0:.1f} s: relative differences {eval_err} "
+        f"(tol {EVAL_CPU_TOL:.0e})")
+    if not max(eval_err.values()) <= EVAL_CPU_TOL:
+        raise AssertionError(f"the evaluation on the card departs from the CPU: {eval_err}")
+
+    # (c) the figure against the bound that wrong weights or normalizers miss
+    log(f"eval (c): rel_l2 {figures['rel_l2']:.6e} (bound {REL_L2_BOUND:.1e}), rel_h1 "
+        f"{figures['rel_h1']:.6e} (bound {REL_H1_BOUND:.1e})")
+    if not (figures["rel_l2"] <= REL_L2_BOUND and figures["rel_h1"] <= REL_H1_BOUND):
+        raise AssertionError(f"the published weights score {figures} on the regenerated split")
+    # where the solver's time goes: 200 steps of the split's batch
+    w0_all = ns_solver.gaussian_rf_vorticity(np.random.default_rng(ev.TEST_SEED),
+                                             ev.TEST_TRAJECTORIES, EVAL_RES)
+    window = {**ev.SOLVER, "T": SOLVER_PROFILE_STEPS * ev.SOLVER["dt"],
+              "record_dt": SOLVER_PROFILE_STEPS * ev.SOLVER["dt"]}
+    profile = profile_window(
+        f"{SOLVER_PROFILE_STEPS} solver steps of {ev.TEST_TRAJECTORIES} x {EVAL_RES}²",
+        lambda: ns_solver.simulate_navier_stokes_2d(w0_all, device="cuda", **window),
+    )
+    return {"launches": launches, **figures, "solver_s": solver_s, "eval_s": eval_s,
+            "solver_rel_l2_vs_cpu": solver_err, "eval_rel_diff_vs_cpu": eval_err,
+            "solver_profile": profile}
 
 
 def make_pairs(n: int, in_std: float, seed: int):
@@ -460,8 +581,6 @@ def compare_step_with_cpu(model, meta, processor, x, y) -> dict:
 
 def profile_steps(model, processor, x, y) -> dict:
     """Device time by kernel over two train steps of batch 8 (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
     from neuraloperator_tpu_torch.losses import H1Loss
     from neuraloperator_tpu_torch.training import Trainer, build_optimizer
@@ -469,10 +588,21 @@ def profile_steps(model, processor, x, y) -> dict:
     loader = DataLoader(TensorDataset(x, y), TRAIN_BATCH)
     trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device="cuda")
     trainer.train(loader, {}, build_optimizer(OPT, 1), training_loss=H1Loss(d=2))  # warm
+    return profile_window(
+        f"2 train steps of batch {TRAIN_BATCH}",
+        lambda: trainer.train(loader, {}, build_optimizer(OPT, 1), training_loss=H1Loss(d=2)),
+    )
+
+
+def profile_window(label: str, run) -> dict:
+    """Device time by kernel over one call of ``run`` (torch.profiler), and
+    the device's idle share of the host-clock window."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train(loader, {}, build_optimizer(OPT, 1), training_loss=H1Loss(d=2))
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # kernels only: user annotations (the optimizer's range, for one) span
@@ -485,11 +615,12 @@ def profile_steps(model, processor, x, y) -> dict:
                            or e.name.startswith("Optimizer.")) else kernels
         bucket[e.name] = bucket.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     if not kernels:
-        log("profile: the profiler recorded no device kernels; device time not measured")
+        log(f"profile: {label}: the profiler recorded no device kernels; device time "
+            f"not measured")
         return {"wall_ms": wall_ms}
     total = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
-    log(f"profile: 2 train steps of batch {TRAIN_BATCH}: wall {wall_ms:.2f} ms, kernels "
+    log(f"profile: {label}: wall {wall_ms:.2f} ms, kernels "
         f"{total:.2f} ms ({total / wall_ms:.1%}; idle {1 - total / wall_ms:.1%}); "
         f"annotated spans (ms) {spans}")
     for key, ms in top:
@@ -497,8 +628,9 @@ def profile_steps(model, processor, x, y) -> dict:
     return {"wall_ms": wall_ms, "device_ms": total, "spans": spans, "top": top}
 
 
-def kernel_line(variants, served, trained) -> list:
-    """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel."""
+def kernel_line(variants, paths) -> list:
+    """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
+    with its launches summed over the paths and by path."""
     kernels = []
     for name, spec in kernel_specs().items():
         own = [v for v in variants if v["name"] == name]
@@ -508,9 +640,8 @@ def kernel_line(variants, served, trained) -> list:
             "route": "cuda",
             "source": SOURCE,
             "replaces": f"{PALLAS}:140 (_mode_contraction, dn={spec['dn']}, :{spec['line']})",
-            "launches": trained["launches"][name],
-            "launches_by_path": {"serve": served["launches"][name],
-                                 "train": trained["launches"][name]},
+            "launches": sum(p["launches"][name] for p in paths.values()),
+            "launches_by_path": {path: p["launches"][name] for path, p in paths.items()},
             "max_abs_err": main["max_abs_err"],
             "rel_l2": main["rel_l2"],
             "ms": main["ms"],
@@ -544,6 +675,8 @@ def main() -> None:
 
     variants = [dict(name="mode_contraction", **check_kernel("mode_contraction", b, dt))
                 for dt in (torch.float32, torch.bfloat16) for b in BUCKETS]
+    variants.append(dict(name="mode_contraction",
+                         **check_kernel("mode_contraction", EVAL_BATCH, torch.float32)))
     variants += [dict(name=name, **check_kernel(name, TRAIN_BATCH, dt))
                  for name in ("mode_contraction_dx", "mode_contraction_dw")
                  for dt in (torch.float32, torch.bfloat16)]
@@ -557,12 +690,18 @@ def main() -> None:
     # stay resident in shared memory (checked, not timed)
     k3_edges = [check_kernel("mode_contraction_dw", B, dt, channels=ch, modes=m, timed=False)
                 for B, ch, m in K3_EDGE_SHAPES for dt in (torch.float32, torch.bfloat16)]
-    served = serve()
+    model, processor = load_flagship_on("cuda")
+    cpu_model, _ = load_flagship_on("cpu")
+    served = serve(model, processor, cpu_model)
+    evaluated = evaluate_flagship(model, processor, cpu_model)
+    del model, cpu_model
     trained = train()
 
-    kernels = kernel_line(variants, served, trained)
+    kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained})
     next(k for k in kernels if k["name"] == "mode_contraction_dw")["edge_checks"] = k3_edges
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
+        f"eval rel_l2 {evaluated['rel_l2']:.6e} rel_h1 {evaluated['rel_h1']:.6e} (solver "
+        f"{evaluated['solver_s']:.1f} s, eval {evaluated['eval_s']:.2f} s); "
         f"train step {trained['step_ms']:.2f} ms, peak {trained['peak_mib']:.0f} MiB")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -60,12 +60,21 @@ def convert_flax_params(
     """The port ``state_dict`` holding the values of the flax ``params``.
 
     ``port_state`` is the target model's ``state_dict()`` (names, shapes and
-    dtypes). The tensors are placed on ``device``, ``"cuda"`` by default.
+    dtypes; it may sit on the ``meta`` device). Each leaf is cast to its
+    parameter's dtype, as the JAX package casts a checkpoint's leaves to the
+    template's on load, so a float16 checkpoint comes back in float32. A
+    leaf may be an array or a tensor (``serialization`` returns bfloat16
+    leaves as tensors). The tensors are placed on ``device``, ``"cuda"`` by
+    default.
     """
     device = resolve_device(device)
     check_flax_params(params, port_state)
     flat = flatten_flax(params)
+
+    def tensor(leaf):
+        return leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+
     return {
-        name: torch.from_numpy(np.array(flat[name])).to(device=device, dtype=ref.dtype)
+        name: tensor(flat[name]).to(device=device, dtype=ref.dtype)
         for name, ref in port_state.items()
     }

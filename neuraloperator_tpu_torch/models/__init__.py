@@ -1,4 +1,13 @@
-from .base_model import available_models, get_model, model_from_metadata, register_model
+from .base_model import (
+    available_models,
+    from_checkpoint,
+    get_model,
+    load_checkpoint,
+    load_flagship,
+    model_from_metadata,
+    register_model,
+)
 from .fno import FNO
 
-__all__ = ["FNO", "available_models", "get_model", "model_from_metadata", "register_model"]
+__all__ = ["FNO", "available_models", "from_checkpoint", "get_model", "load_checkpoint",
+           "load_flagship", "model_from_metadata", "register_model"]

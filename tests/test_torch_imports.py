@@ -1,8 +1,10 @@
 """Import and device hygiene of the PyTorch port.
 
 The port and ``chip_smoke.py`` run on a machine without JAX, so they must
-import nothing of ``jax``, ``flax``, ``optax`` or the JAX package; and the
-entry points must refuse to fall back to the CPU unless asked to.
+import nothing of ``jax``, ``flax``, ``optax`` or the JAX package, nor
+``msgpack``, which that machine lacks too (the port reads checkpoints with
+its own reader); and the entry points must refuse to fall back to the CPU
+unless asked to.
 """
 
 import ast
@@ -10,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,7 +20,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "neuraloperator_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "neuraloperator_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "neuraloperator_tpu")
 
 
 def _port_sources():
@@ -48,6 +51,12 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/training/optimizer.py",
         "neuraloperator_tpu_torch/training/trainer.py",
         "neuraloperator_tpu_torch/data/datasets/tensor_dataset.py",
+        "neuraloperator_tpu_torch/data/datasets/ns_solver.py",
+        "neuraloperator_tpu_torch/data/datasets/pt_dataset.py",
+        "neuraloperator_tpu_torch/serialization.py",
+        "neuraloperator_tpu_torch/training/training_state.py",
+        "neuraloperator_tpu_torch/scripts/eval_ns_checkpoint.py",
+        "neuraloperator_tpu_torch/scripts/serve_model.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -103,6 +112,33 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card):
         Trainer(model=model, n_epochs=1)
     served = CompiledForward(model, torch.zeros(1, 1, 8, 8), device="cpu")
     assert served(torch.zeros(1, 1, 8, 8)).device.type == "cpu"
+
+
+def _new_entry_points():
+    from neuraloperator_tpu_torch.data.datasets import ns_solver
+    from neuraloperator_tpu_torch.models import load_flagship
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint, serve_model
+    from neuraloperator_tpu_torch.training import load_training_state
+
+    flagship = ROOT / "artifacts/ns128_v2"
+    zeros = np.zeros((1, 8, 8), np.float32)
+    return {
+        "load_flagship": lambda: load_flagship(flagship, "best_model_f16"),
+        "load_training_state": lambda: load_training_state(flagship, "best_model_f16", {}),
+        "simulate_navier_stokes_2d": lambda: ns_solver.simulate_navier_stokes_2d(zeros, T=1.0),
+        "make_nsforcing_split": lambda: ns_solver.make_nsforcing_split(1, 8, 0, T=1.0),
+        "evaluate": lambda: eval_ns_checkpoint.evaluate(None, None, zeros, zeros, 1),
+        "eval_ns_checkpoint.main": lambda: eval_ns_checkpoint.main(["--save_dir", str(flagship)]),
+        "serve_model.main": lambda: serve_model.main(["--ckpt_dir", str(flagship)]),
+    }
+
+
+@pytest.mark.parametrize("name", ["load_flagship", "load_training_state",
+                                  "simulate_navier_stokes_2d", "make_nsforcing_split",
+                                  "evaluate", "eval_ns_checkpoint.main", "serve_model.main"])
+def test_checkpoint_solver_and_eval_entry_points_refuse_the_cpu_fallback(no_card, name):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _new_entry_points()[name]()
 
 
 def test_chip_smoke_fails_without_a_card(no_card):

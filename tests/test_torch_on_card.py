@@ -12,12 +12,18 @@ operands; the served FNO on the card against the same weights on the CPU:
 relative l2 <= 1e-5 (f32, TF32 off). Gradients of a small FNO on the card
 against the same model's CPU gradients: relative l2 <= 1e-4 per parameter
 (f32 throughout, but a gradient sums over the batch and every grid point in
-another order on each device, through 2 layers of DFT matmuls).
+another order on each device, through 2 layers of DFT matmuls). The
+Navier–Stokes solver on the card against the CPU: relative l2 <= 1e-5 per
+snapshot after one record of 1000 steps (cuFFT and pocketfft round
+differently: 1.7e-7 measured at 128², see chip_smoke.py's SOLVER_TOL). The evaluation of the
+published weights on the card against the CPU: each figure within 1e-4
+relative.
 """
 
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,6 +55,7 @@ def _rel_l2(ar, ai, br, bi):
     "B,I,O,M",
     [
         (1, 64, 64, 2112), (2, 64, 64, 2112), (3, 64, 64, 2112), (8, 64, 64, 2112),
+        (16, 64, 64, 2112),  # the evaluation's batch
         (5, 7, 9, 100),     # channel tails, I not a multiple of the load batch
         (13, 66, 20, 77),   # two batch tiles, ragged mode tile
     ],
@@ -187,3 +194,35 @@ def test_fno_gradients_on_the_card_match_the_cpu(card):
         err = float((p.grad.cpu().double() - ref).norm() / ref.norm())
         assert err <= 1e-4, f"{name}: rel l2 {err}"
     assert [fn.launches - b for fn, b in zip(launches, before)] == [2, 2]
+
+
+def test_solver_on_the_card_matches_the_cpu(card):
+    from neuraloperator_tpu_torch.data.datasets import ns_solver
+
+    w0 = ns_solver.gaussian_rf_vorticity(np.random.default_rng(10_000), 3, 64)
+    card_snap = ns_solver.simulate_navier_stokes_2d(w0, T=1.0, device="cuda").cpu().numpy()
+    cpu_snap = ns_solver.simulate_navier_stokes_2d(w0, T=1.0, device="cpu").numpy()
+    assert card_snap.shape == cpu_snap.shape == (3, 1, 64, 64)
+    for b in range(3):
+        err = np.linalg.norm(card_snap[b] - cpu_snap[b]) / np.linalg.norm(cpu_snap[b])
+        assert err <= 1e-5, (b, err)
+
+
+def test_evaluation_on_the_card_matches_the_cpu(card):
+    """The published weights on 32 pairs of vorticity fields, card vs CPU."""
+    from neuraloperator_tpu_torch.data.datasets import ns_solver
+    from neuraloperator_tpu_torch.models import load_flagship
+    from neuraloperator_tpu_torch.scripts.eval_ns_checkpoint import evaluate
+
+    flagship = METADATA.parent
+    model, processor, _ = load_flagship(flagship, "best_model_f16", device="cuda")
+    cpu_model, _, _ = load_flagship(flagship, "best_model_f16", device="cpu")
+    fields = ns_solver.gaussian_rf_vorticity(np.random.default_rng(3), 64, 128)[:, None]
+    xs, ys = fields[:32], fields[32:]
+    before = tsc.mode_contraction.launches
+    on_card = evaluate(model, processor, xs, ys, 16, device="cuda")
+    assert tsc.mode_contraction.launches == before + 4 * 2
+    on_cpu = evaluate(cpu_model, processor, xs, ys, 16, device="cpu")
+    assert on_card["pairs"] == on_cpu["pairs"] == 32
+    for k in ("rel_l2", "rel_h1"):
+        assert abs(on_card[k] - on_cpu[k]) <= 1e-4 * abs(on_cpu[k]), (k, on_card, on_cpu)
