@@ -11,12 +11,16 @@ Phases, each printed with its elapsed seconds as it goes:
    and prints nvcc's registers and spills per kernel;
 3. kernels: runs each kernel (K1 forward contraction, K2 its input
    gradient, K3 its weight gradient) against its plain PyTorch version at
-   the flagship shapes (K1 also at the eval's batch 16), and times the
-   kernel, the plain version and one library call with CUDA events beside
-   the kernel's bound; K3 is also
-   checked at a ragged shape and at one whose slices do not fit in shared
-   memory, each printed with the schedule and load path it took, and two
-   of its launches on the same inputs must agree bit for bit;
+   the flagship shapes (K1 at batches 1, 8 and 16, K2 and K3 at 8, each in
+   f32 and bf16), and times the kernel, the plain version and one library
+   call on the device (``_timing.device_ms``: the launches queued behind a
+   device-side wait, so the CUDA events do not time the host's enqueue
+   rate) beside the kernel's bound and the host's time per call; each is
+   also checked, untimed, at the edge shapes (K1 and K2: more rows than a
+   block holds, wider channels, more mode tiles than SMs, unaligned rows;
+   K3: a ragged shape and slices too large for shared memory). Every check
+   prints the plan its launcher chose, and two launches on the same inputs
+   must agree bit for bit;
 4. serve: loads the published flagship NS-128 FNO (``artifacts/ns128_v2``,
    the float16 copy of its best weights, evaluated in float32) at full width
    with the checkpoint's normalizers through ``models.load_flagship``,
@@ -75,8 +79,12 @@ CHANNELS, MODES = 64, 64 * 33
 TRAIN_BATCH = 8
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 SERVE_TOL = 1e-4
-# K3 checked off the flagship shape: (B, (I, O), M)
+# checked off the flagship shape, untimed: (B, (I, O), M)
 K3_EDGE_SHAPES = ((13, (66, 20), 77), (32, (128, 128), MODES))
+# K1 and K2: more rows than a block holds (17, 32), wider channels, more
+# mode tiles than SMs, and rows that are not 16-byte aligned
+K12_EDGE_SHAPES = ((17, (64, 64), MODES), (32, (64, 64), MODES), (32, (128, 128), MODES),
+                   (8, (64, 64), 4 * MODES), (13, (66, 20), 77), (5, (7, 9), 100))
 REQUESTS = (3, 1, 8, 3, 8, 1)
 BUCKETS = (1, 8)
 # the published weights the serve and eval phases load: the f16 copy, the
@@ -134,31 +142,6 @@ def rel_l2(ar, ai, br, bi) -> float:
     return float((num / (br ** 2 + bi ** 2).sum()).sqrt())
 
 
-def time_ms(fn, arg_sets, iters: int, host: bool = False):
-    """Mean ms per call by CUDA events (and, with ``host``, also the host's
-    ms per call to enqueue them: when it nears the device time, the host
-    sets the pace).
-
-    The calls walk ``arg_sets`` round robin; the sets together exceed the
-    L2 cache, so every call reads its operands from device memory, as each
-    layer of the model does.
-    """
-    for args in arg_sets:
-        fn(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for k in range(iters):
-        fn(*arg_sets[k % len(arg_sets)])
-    host_ms = 1e3 * (time.perf_counter() - t0) / iters
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / iters
-    return (ms, host_ms) if host else ms
-
-
 # One packed einsum per kernel: the four real products of the complex
 # contraction in one cuBLAS-backed call (the JAX package's XLA path), the
 # library yardstick. The port never calls them.
@@ -181,6 +164,7 @@ def kernel_specs():
     return {
         "mode_contraction": dict(
             fn=tsc.mode_contraction, plain=tsc.mode_contraction_reference,
+            plan=tsc.mode_contraction_plan,
             library=packed_fwd, dn="_FWD", line=67, b_is_weight=True,
             a=lambda B, I, O, M: (B, I, M), b=lambda B, I, O, M: (I, O, M),
             out=lambda B, I, O, M: (B, O, M),
@@ -188,6 +172,7 @@ def kernel_specs():
         ),
         "mode_contraction_dx": dict(
             fn=tsc.mode_contraction_dx, plain=tsc.mode_contraction_dx_reference,
+            plan=lambda *ops: tsc.mode_contraction_plan(*ops, dx=True),
             library=packed_dx, dn="_BWD_X, conj_b=True", line=68, b_is_weight=True,
             a=lambda B, I, O, M: (B, O, M), b=lambda B, I, O, M: (I, O, M),
             out=lambda B, I, O, M: (B, I, M),
@@ -195,6 +180,7 @@ def kernel_specs():
         ),
         "mode_contraction_dw": dict(
             fn=tsc.mode_contraction_dw, plain=tsc.mode_contraction_dw_reference,
+            plan=tsc.mode_contraction_dw_plan,
             library=packed_dw, dn="_BWD_W, conj_a=True", line=69, b_is_weight=False,
             a=lambda B, I, O, M: (B, I, M), b=lambda B, I, O, M: (B, O, M),
             out=lambda B, I, O, M: (I, O, M),
@@ -206,8 +192,12 @@ def kernel_specs():
 def check_kernel(name: str, batch: int, dtype: torch.dtype, channels=None, modes=None,
                  timed: bool = True) -> dict:
     """One kernel against its plain version (at the flagship shape unless
-    ``channels`` = (I, O) and ``modes`` say otherwise), and its times."""
-    from neuraloperator_tpu_torch.ops import spectral_contraction as tsc
+    ``channels`` = (I, O) and ``modes`` say otherwise), and its times.
+
+    The timed calls walk operand sets that together exceed the L2 cache, so
+    every call reads its operands from device memory, as each layer of the
+    model does."""
+    from neuraloperator_tpu_torch._timing import device_ms
 
     spec = kernel_specs()[name]
     I, O = channels or (CHANNELS, CHANNELS)
@@ -217,7 +207,7 @@ def check_kernel(name: str, batch: int, dtype: torch.dtype, channels=None, modes
     a_shape, b_shape, out_shape = spec["a"](*dims), spec["b"](*dims), spec["out"](*dims)
     in_bytes = 2 * (math.prod(a_shape) + math.prod(b_shape)) * size
     out_bytes = 2 * math.prod(out_shape) * 4
-    n_sets = max(2, math.ceil(2 * L2_BYTES / (in_bytes + out_bytes)) + 1)
+    n_sets = max(2, math.ceil(2 * L2_BYTES / (in_bytes + out_bytes)) + 1) if timed else 1
     gen = torch.Generator(device="cuda").manual_seed(SEED + batch + spec["line"])
     # a weight operand at the layer's init scale, the others unit normal
     b_scale = (2 / (I + O)) ** 0.5 / 2 ** 0.5 if spec["b_is_weight"] else 1.0
@@ -233,16 +223,15 @@ def check_kernel(name: str, batch: int, dtype: torch.dtype, channels=None, modes
     err = rel_l2(kr, ki, pr, pi)
     max_abs = float(torch.maximum((kr - pr).abs().max(), (ki - pi).abs().max()))
     label = f"{name} B={batch} I={I} O={O} M={M} {str(dtype).replace('torch.', '')}"
-    path = {}
-    if name == "mode_contraction_dw":
-        # K3 sums the batch in one thread, in order: two launches agree bit for bit
-        again = spec["fn"](*sets[0])
-        torch.cuda.synchronize()
-        if not (torch.equal(again[0], kr) and torch.equal(again[1], ki)):
-            raise AssertionError(f"{label}: two launches on the same inputs differ")
-        path = tsc.mode_contraction_dw_plan(*sets[0])
-    log(f"{label}: rel_l2 {err:.3e} (tol {KERNEL_TOL[dtype]:.0e}), max_abs {max_abs:.3e}"
-        + (f"; path {path}, two launches bit-identical" if path else ""))
+    # each kernel sums every output in one thread, in a fixed order: two
+    # launches on the same inputs agree bit for bit
+    again = spec["fn"](*sets[0])
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], kr) and torch.equal(again[1], ki)):
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
+    path = spec["plan"](*sets[0])
+    log(f"{label}: rel_l2 {err:.3e} (tol {KERNEL_TOL[dtype]:.0e}), max_abs {max_abs:.3e}; "
+        f"plan {path}, two launches bit-identical")
     if not err <= KERNEL_TOL[dtype]:
         raise AssertionError(f"{label} disagrees with its plain version: rel_l2 {err}")
     if not timed:
@@ -250,9 +239,9 @@ def check_kernel(name: str, batch: int, dtype: torch.dtype, channels=None, modes
                 "shape": {"B": batch, "I": I, "O": O, "M": M}, "rel_l2": err,
                 "max_abs_err": max_abs, "path": path}
 
-    ms, host_ms = time_ms(spec["fn"], sets, iters=60, host=True)
-    plain_ms = time_ms(spec["plain"], sets, iters=20)
-    library_ms = time_ms(spec["library"], [spec["pack"](s) for s in sets], iters=20)
+    ms, host_ms = device_ms(spec["fn"], sets, iters=60)
+    plain_ms = device_ms(spec["plain"], sets, iters=20)[0]
+    library_ms = device_ms(spec["library"], [spec["pack"](s) for s in sets], iters=20)[0]
     flops = 8 * batch * I * O * M
     bytes_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
     ops_s = flops / PEAK_FLOPS[dtype]
@@ -263,11 +252,9 @@ def check_kernel(name: str, batch: int, dtype: torch.dtype, channels=None, modes
         "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bytes_s, ops_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-        "bytes": in_bytes + out_bytes, "flops": flops,
+        "bytes": in_bytes + out_bytes, "flops": flops, "path": path,
     }
-    if path:
-        result["path"] = path
-    log(f"{label}: kernel {ms:.4f} ms (host {host_ms:.4f} ms per call), bound {result['bound_ms']:.4f} ms "
+    log(f"{label}: kernel {ms:.4f} ms on the device (host {host_ms:.4f} ms per call), bound {result['bound_ms']:.4f} ms "
         f"({result['bound_by']}), plain {plain_ms:.4f} ms, packed einsum {library_ms:.4f} ms")
     return result
 
@@ -673,23 +660,23 @@ def main() -> None:
     for line in ptxas:
         print(f"    {line}", flush=True)
 
+    dtypes = (torch.float32, torch.bfloat16)
     variants = [dict(name="mode_contraction", **check_kernel("mode_contraction", b, dt))
-                for dt in (torch.float32, torch.bfloat16) for b in BUCKETS]
-    variants.append(dict(name="mode_contraction",
-                         **check_kernel("mode_contraction", EVAL_BATCH, torch.float32)))
+                for dt in dtypes for b in (*BUCKETS, EVAL_BATCH)]
     variants += [dict(name=name, **check_kernel(name, TRAIN_BATCH, dt))
-                 for name in ("mode_contraction_dx", "mode_contraction_dw")
-                 for dt in (torch.float32, torch.bfloat16)]
+                 for name in ("mode_contraction_dx", "mode_contraction_dw") for dt in dtypes]
     k3 = {v["dtype"]: v["ms"] for v in variants
           if v["name"] == "mode_contraction_dw" and v["batch"] == TRAIN_BATCH}
     k1 = next(v["ms"] for v in variants if v["name"] == "mode_contraction"
               and v["batch"] == TRAIN_BATCH and v["dtype"] == "float32")
     log(f"K3 at B={TRAIN_BATCH}: f32 {k3['float32']:.4f} ms, bf16 {k3['bfloat16']:.4f} ms; "
         f"K3 f32 / K1 f32 = {k3['float32'] / k1:.3f}")
-    # K3 off the flagship shape: a ragged mode tile, and slices too large to
-    # stay resident in shared memory (checked, not timed)
-    k3_edges = [check_kernel("mode_contraction_dw", B, dt, channels=ch, modes=m, timed=False)
-                for B, ch, m in K3_EDGE_SHAPES for dt in (torch.float32, torch.bfloat16)]
+    # off the flagship shape (checked, not timed)
+    edges = {name: [check_kernel(name, B, dt, channels=ch, modes=m, timed=False)
+                    for B, ch, m in shapes for dt in dtypes]
+             for name, shapes in (("mode_contraction", K12_EDGE_SHAPES),
+                                  ("mode_contraction_dx", K12_EDGE_SHAPES),
+                                  ("mode_contraction_dw", K3_EDGE_SHAPES))}
     model, processor = load_flagship_on("cuda")
     cpu_model, _ = load_flagship_on("cpu")
     served = serve(model, processor, cpu_model)
@@ -698,7 +685,8 @@ def main() -> None:
     trained = train()
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained})
-    next(k for k in kernels if k["name"] == "mode_contraction_dw")["edge_checks"] = k3_edges
+    for k in kernels:
+        k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
         f"eval rel_l2 {evaluated['rel_l2']:.6e} rel_h1 {evaluated['rel_h1']:.6e} (solver "
         f"{evaluated['solver_s']:.1f} s, eval {evaluated['eval_s']:.2f} s); "

@@ -17,7 +17,9 @@ The TPU kernel's operands were transposed to mode-major blocks around the
 call; here they are not. Each wrapper launches ``csrc/spectral_contraction.cu``
 for CUDA tensors (counting the launch in ``<wrapper>.launches``) and runs
 its plain version (``*_reference``) for CPU tensors. All three are bound by
-the bytes of their weight-sized operand or result (see the source's note).
+the bytes of their weight-sized operand or result (see the source's note);
+:func:`mode_contraction_plan` and :func:`mode_contraction_dw_plan` report
+how the launchers run a shape.
 The kernels take f32 or bf16 operands of one dtype and return f32.
 
 :class:`ModeContraction` is the differentiable contraction: K1 forward,
@@ -48,6 +50,8 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
+    lib.nop_mode_contraction_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.nop_mode_contraction_plan.restype = ctypes.c_int
     lib.nop_mode_contraction_dw_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.nop_mode_contraction_dw_plan.restype = ctypes.c_int
     lib.nop_error_string.argtypes = [ctypes.c_int]
@@ -195,6 +199,46 @@ def mode_contraction_dw(xr, xi, gr, gi) -> Parts:
     return out
 
 
+def _plan(kind: str, a: Parts, b: Parts) -> Tuple[int, ...]:
+    """The five numbers a kernel's plan entry point reports for these CUDA operands."""
+    B, I, O, M = _shapes(kind, a, b)
+    if a[0].device.type != "cuda":
+        raise ValueError(f"no kernel for device {a[0].device}")
+    if a[0].dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16 operands, got {a[0].dtype}")
+    # the launch also needs the outputs aligned; torch.empty's always are
+    aligned = int(all(t.data_ptr() % 16 == 0 for t in (*a, *b)))
+    bf16 = int(a[0].dtype == torch.bfloat16)
+    out = (ctypes.c_int * 5)()
+    lib = _library()
+    with torch.cuda.device(a[0].device):
+        if kind == "dw":
+            err = lib.nop_mode_contraction_dw_plan(bf16, B, I, O, M, aligned, out)
+        else:
+            err = lib.nop_mode_contraction_plan(bf16, int(kind == "dx"), B, I, O, M, aligned, out)
+    if err != 0:
+        raise RuntimeError(f"{kind} plan failed: {lib.nop_error_string(err).decode()} (cudaError {err})")
+    return tuple(out)
+
+
+def mode_contraction_plan(ar, ai, wr, wi, dx: bool = False) -> dict:
+    """How K1 (or, with ``dx``, K2 on g (B, O, M)) runs on these CUDA
+    operands, as its launcher decides.
+
+    ``batch_tile`` is the batch rows a block serves from one read of the
+    weight (1, 8 or 16) and ``weight_reads`` how often each weight element
+    is read (once up to 16 rows; past that once per tile, the repeats
+    meant to hit L2); ``load`` is ``"tma"`` (TMA tensor loads, when every
+    plane is 16-byte aligned and a row of M values is a multiple of 16
+    bytes) or ``"element"``; then the dynamic shared memory, the work units
+    and the blocks launched. Launches nothing.
+    """
+    tile, aligned, smem, units, grid = _plan("dx" if dx else "fwd", (ar, ai), (wr, wi))
+    return {"batch_tile": tile, "weight_reads": -(-ar.shape[0] // tile),
+            "load": "tma" if aligned else "element",
+            "smem_bytes": smem, "units": units, "grid": grid}
+
+
 def mode_contraction_dw_plan(xr, xi, gr, gi) -> dict:
     """How K3 runs on these CUDA operands, as its launcher decides.
 
@@ -204,22 +248,10 @@ def mode_contraction_dw_plan(xr, xi, gr, gi) -> dict:
     every plane is 16-byte aligned) or ``"element"``; then the dynamic
     shared memory, the work units and the blocks launched. Launches nothing.
     """
-    B, I, O, M = _shapes("dw", (xr, xi), (gr, gi))
-    if xr.device.type != "cuda":
-        raise ValueError(f"no kernel for device {xr.device}")
-    if xr.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"the kernel takes float32 or bfloat16 operands, got {xr.dtype}")
-    aligned = all(t.data_ptr() % 16 == 0 for t in (xr, xi, gr, gi))
-    out = (ctypes.c_int * 5)()
-    lib = _library()
-    with torch.cuda.device(xr.device):
-        err = lib.nop_mode_contraction_dw_plan(
-            int(xr.dtype == torch.bfloat16), B, I, O, M, int(aligned), out)
-    if err != 0:
-        raise RuntimeError(f"K3 plan failed: {lib.nop_error_string(err).decode()} (cudaError {err})")
-    return {"schedule": "resident" if out[0] else "streamed",
-            "load": "cp.async" if out[1] else "element",
-            "smem_bytes": out[2], "units": out[3], "grid": out[4]}
+    resident, aligned, smem, units, grid = _plan("dw", (xr, xi), (gr, gi))
+    return {"schedule": "resident" if resident else "streamed",
+            "load": "cp.async" if aligned else "element",
+            "smem_bytes": smem, "units": units, "grid": grid}
 
 
 mode_contraction.launches = 0

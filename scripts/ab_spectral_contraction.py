@@ -6,14 +6,20 @@
 with the same ``extern "C"`` entry points (for example an earlier commit's,
 from ``git show <commit>:neuraloperator_tpu_torch/csrc/spectral_contraction.cu``).
 Both are built with the package's nvcc flags; ptxas' registers, shared
-memory and spills are printed for each. For K3 (``nop_mode_contraction_dw``)
-at the flagship shape (I = O = 64, M = 2112) and batches 1, 2 and 8, f32
-and bf16, each build is checked against the plain version and timed with
-CUDA events over operand sets that exceed the L2 cache, in the order old,
-new, new, old. K1 of the current build is timed in the same run as the
-machine-independent yardstick (the same 25.8 us byte bound at f32 B=8).
+memory and spills are printed for each. At the flagship shape (I = O = 64,
+M = 2112) it runs K1 (``nop_mode_contraction``) in f32 at B = 1, 8, 16 and 32,
+K2 (``nop_mode_contraction_dx``) in f32 at B = 8, K1 and K2 in bf16 at
+B = 8, and K3 (``nop_mode_contraction_dw``) in f32 and bf16 at B = 8. Each
+build is checked against the plain version (and two of its launches
+against each other, bit for bit), then timed on the device
+(``_timing.device_ms``: the launches queued behind a device-side wait, over
+operand sets that exceed the L2 cache) in the order old, new, new, old.
 The card's name and power limit head the output; ``DIR/ab_spectral_contraction.json``
-holds every number, and ``--sass`` writes both builds' SASS there.
+holds every number, and ``--sass`` writes both builds' SASS there. Two
+yardsticks follow: the card's practical read rate (one ``torch.sum`` over
+the f32 weight's bytes), and for K1 at f32 B = 8 each build's host time
+per call of its raw entry point (in turns) and the package wrapper's
+device and host time per call.
 """
 
 import argparse
@@ -32,14 +38,23 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from neuraloperator_tpu_torch import _native  # noqa: E402
+from neuraloperator_tpu_torch._timing import device_ms  # noqa: E402
 from neuraloperator_tpu_torch.ops import spectral_contraction as tsc  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 I = O = 64
 M = 64 * 33
-CASES = [(8, torch.float32), (8, torch.bfloat16), (1, torch.float32), (2, torch.float32),
-         (1, torch.bfloat16)]
+# (kernel, B, dtype); kernel: entry point suffix, plain version, operand shapes
+KERNELS = {
+    "K1": ("", tsc.mode_contraction_reference, lambda B: ((B, I, M), (I, O, M), (B, O, M))),
+    "K2": ("_dx", tsc.mode_contraction_dx_reference, lambda B: ((B, O, M), (I, O, M), (B, I, M))),
+    "K3": ("_dw", tsc.mode_contraction_dw_reference, lambda B: ((B, I, M), (B, O, M), (I, O, M))),
+}
+CASES = [("K1", 8, torch.float32), ("K1", 16, torch.float32), ("K1", 1, torch.float32),
+         ("K1", 32, torch.float32),
+         ("K2", 8, torch.float32), ("K1", 8, torch.bfloat16), ("K2", 8, torch.bfloat16),
+         ("K3", 8, torch.float32), ("K3", 8, torch.bfloat16)]
 ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -66,16 +81,18 @@ def ptxas_lines(log: str):
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
-def dw_entry(lib, dtype):
-    fn = getattr(lib, f"nop_mode_contraction_dw_{'f32' if dtype == torch.float32 else 'bf16'}")
+def entry(lib, kernel: str, dtype):
+    """The raw entry point of one kernel of a build, as a function of the four operand parts."""
+    suffix, _, shapes = KERNELS[kernel]
+    fn = getattr(lib, f"nop_mode_contraction{suffix}_{'f32' if dtype == torch.float32 else 'bf16'}")
     fn.argtypes, fn.restype = ARGTYPES, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
 
-    def run(xr, xi, gr, gi):
-        B = xr.shape[0]
-        out_r = torch.empty(I, O, M, device="cuda")
+    def run(ar, ai, br, bi):
+        B = ar.shape[0]
+        out_r = torch.empty(shapes(B)[2], device="cuda")
         out_i = torch.empty_like(out_r)
-        err = fn(xr.data_ptr(), xi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
+        err = fn(ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(),
                  out_r.data_ptr(), out_i.data_ptr(), B, I, O, M, stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
@@ -84,29 +101,24 @@ def dw_entry(lib, dtype):
     return run
 
 
-def time_ms(fn, sets, iters):
-    for s in sets:
-        fn(*s)
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for k in range(iters):
-        fn(*sets[k % len(sets)])
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def rel_l2(ar, ai, br, bi):
     ar, ai, br, bi = (t.double() for t in (ar, ai, br, bi))
     return float((((ar - br) ** 2 + (ai - bi) ** 2).sum() / (br ** 2 + bi ** 2).sum()).sqrt())
 
 
-def operand_sets(B, dtype, in_bytes, out_bytes, seed):
+def operand_sets(kernel, B, dtype, seed):
+    """Operand sets that together exceed twice the L2, and their bytes per call."""
+    a_shape, b_shape, out_shape = KERNELS[kernel][2](B)
+    size = torch.finfo(dtype).bits // 8
+    moved = 2 * (math.prod(a_shape) + math.prod(b_shape)) * size + 2 * math.prod(out_shape) * 4
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    n_sets = max(2, math.ceil(2 * L2_BYTES / (in_bytes + out_bytes)) + 1)
-    draw = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
-    return [(draw(B, I, M), draw(B, I, M), draw(B, O, M), draw(B, O, M)) for _ in range(n_sets)]
+    # a weight operand at the layer's init scale, the others unit normal
+    b_scale = 1.0 if kernel == "K3" else (2 / (I + O)) ** 0.5 / 2 ** 0.5
+    draw = lambda shape, s=1.0: (s * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)  # noqa: E731
+    n_sets = max(2, math.ceil(2 * L2_BYTES / moved) + 1)
+    sets = [(draw(a_shape), draw(a_shape), draw(b_shape, b_scale), draw(b_shape, b_scale))
+            for _ in range(n_sets)]
+    return sets, moved
 
 
 def main() -> None:
@@ -137,61 +149,52 @@ def main() -> None:
     libs = {"old": ctypes.CDLL(str(old_path)), "new": ctypes.CDLL(str(new_path))}
 
     results = []
-    for B, dtype in CASES:
-        size = torch.finfo(dtype).bits // 8
-        in_bytes = 2 * (B * I * M + B * O * M) * size
-        out_bytes = 2 * I * O * M * 4
-        sets = operand_sets(B, dtype, in_bytes, out_bytes, seed=B)
-        fns = {k: dw_entry(lib, dtype) for k, lib in libs.items()}
-        ref = tsc.mode_contraction_dw_reference(*sets[0])
-        errs = {}
+    for kernel, B, dtype in CASES:
+        sets, moved = operand_sets(kernel, B, dtype, seed=B)
+        fns = {k: entry(lib, kernel, dtype) for k, lib in libs.items()}
+        ref = KERNELS[kernel][1](*sets[0])
+        check = {}
         for k, fn in fns.items():
-            r1 = fn(*sets[0])
-            r2 = fn(*sets[0])
+            r1, r2 = fn(*sets[0]), fn(*sets[0])
             torch.cuda.synchronize()
-            errs[k] = {"rel_l2": rel_l2(*r1, *ref),
-                       "bit_identical": bool(torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1]))}
+            check[k] = {"rel_l2": rel_l2(*r1, *ref),
+                        "bit_identical": bool(torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1]))}
         times = {"old": [], "new": []}
         for k in ("old", "new", "new", "old"):
-            times[k].append(1e3 * time_ms(fns[k], sets, args.iters))
-        plan = tsc.mode_contraction_dw_plan(*sets[0])
-        row = {"B": B, "dtype": str(dtype).replace("torch.", ""), "I": I, "O": O, "M": M,
-               "bound_us": 1e6 * (in_bytes + out_bytes) / HBM_BYTES_PER_S,
-               "old_us": times["old"], "new_us": times["new"], "check": errs, "plan": plan}
+            times[k].append(1e3 * device_ms(fns[k], sets, args.iters)[0])
+        dt = str(dtype).replace("torch.", "")
+        row = {"kernel": kernel, "B": B, "dtype": dt, "I": I, "O": O, "M": M,
+               "bound_us": 1e6 * moved / HBM_BYTES_PER_S, "old_us": times["old"],
+               "new_us": times["new"], "check": check}
         results.append(row)
-        print(f"K3 B={B} {row['dtype']}: old {times['old']} us, new {times['new']} us "
-              f"(order old, new, new, old), bound {row['bound_us']:.2f} us; {errs}; plan {plan}",
-              flush=True)
+        print(f"{kernel} B={B} {dt}: old {times['old']} us, new {times['new']} us "
+              f"(order old, new, new, old), bound {row['bound_us']:.2f} us; {check}", flush=True)
 
-    # The package's wrapper (shape checks, output allocation, stream lookup,
-    # ctypes call) around the same K3 entry point, at f32 B=8: its time per
-    # call with the device in the loop, and the host's time per call alone
-    B, dtype = 8, torch.float32
-    sets = operand_sets(B, dtype, 2 * 2 * B * (I + O) * M * 4, 2 * I * O * M * 4, seed=B)
-    wrapper = {"raw_entry_us": 1e3 * time_ms(dw_entry(libs["new"], dtype), sets, args.iters),
-               "wrapper_us": 1e3 * time_ms(tsc.mode_contraction_dw, sets, args.iters)}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for k in range(20):
-        tsc.mode_contraction_dw(*sets[k % len(sets)])
-    wrapper["host_us_per_call"] = 1e6 * (time.perf_counter() - t0) / 20
-    torch.cuda.synchronize()
-    print(f"K3 f32 B=8 through the package wrapper: {wrapper}", flush=True)
+    # The card's practical read rate: one torch.sum over the flagship
+    # weight's bytes (69.2 MB in f32), operand sets rotated past the L2
+    w_sets = [(torch.randn(2, I, O, M, device="cuda"),) for _ in range(3)]
+    sum_us = 1e3 * device_ms(torch.sum, w_sets, args.iters)[0]
+    read = {"torch_sum_us": sum_us, "bytes": w_sets[0][0].numel() * 4,
+            "tb_per_s": w_sets[0][0].numel() * 4 / sum_us / 1e6}
+    print(f"read yardstick, torch.sum over the f32 weight: {read}", flush=True)
 
-    # K1 of the current build at f32 B=8, the machine-independent yardstick
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    w_std = (2 / (I + O)) ** 0.5 / 2 ** 0.5
-    k1_sets = [(torch.randn(8, I, M, generator=gen, device="cuda"),
-                torch.randn(8, I, M, generator=gen, device="cuda"),
-                w_std * torch.randn(I, O, M, generator=gen, device="cuda"),
-                w_std * torch.randn(I, O, M, generator=gen, device="cuda")) for _ in range(3)]
-    k1_us = 1e3 * time_ms(tsc.mode_contraction, k1_sets, args.iters)
-    print(f"K1 f32 B=8 (current build): {k1_us:.2f} us", flush=True)
+    # Host time per call at K1 f32 B=8: each build's raw entry point (its
+    # launch path: plan, tensor maps, launch) in turns, and the package's
+    # wrapper (shape checks, output allocation, stream lookup, ctypes call)
+    sets, _ = operand_sets("K1", 8, torch.float32, seed=8)
+    raw = {"old": [], "new": []}
+    for k in ("old", "new", "new", "old"):
+        raw[k].append(1e3 * device_ms(entry(libs[k], "K1", torch.float32), sets, args.iters)[1])
+    ms, host_ms = device_ms(tsc.mode_contraction, sets, args.iters)
+    wrapper = {"device_us": 1e3 * ms, "host_us_per_call": 1e3 * host_ms,
+               "raw_entry_host_us": raw}
+    print(f"K1 f32 B=8 through the package wrapper: {wrapper}", flush=True)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "old_source": str(args.old), "ptxas": logs, "k3": results,
-              "k1_f32_b8_us": k1_us, "k3_wrapper": wrapper, "time": time.strftime("%Y-%m-%d %H:%M:%S")}
+              "old_source": str(args.old), "ptxas": logs, "cases": results,
+              "k1_wrapper": wrapper, "read_yardstick": read, "time": time.strftime("%Y-%m-%d %H:%M:%S")}
     (args.out / "ab_spectral_contraction.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps({"k3_f32_b8_new_over_k1": sum(results[0]["new_us"]) / 2 / k1_us}))
+    print(json.dumps({f"{r['kernel']} B={r['B']} {r['dtype']}": {
+        "old_over_new": sum(r["old_us"]) / sum(r["new_us"])} for r in results}))
 
 
 if __name__ == "__main__":

@@ -98,7 +98,12 @@ def _torch(parts, dtype=torch.float32):
     return tuple(torch.from_numpy(a).to(dtype) for a in parts)
 
 
-@pytest.mark.parametrize("B,I,O,M", [(3, 8, 8, 37), (1, 16, 8, 301), (8, 12, 20, 130)])
+@pytest.mark.parametrize(
+    "B,I,O,M",
+    [(3, 8, 8, 37), (1, 16, 8, 301), (8, 12, 20, 130),
+     # past the 16 batch rows a CUDA block holds, I != O, M not a multiple of 4
+     (17, 12, 20, 37), (17, 20, 6, 77)],
+)
 def test_backward_plain_versions_match_pallas_f32(interpret_pallas, B, I, O, M):
     x, w, g = _operands(0, B, I, O, M)
     for got, want in (
@@ -110,7 +115,12 @@ def test_backward_plain_versions_match_pallas_f32(interpret_pallas, B, I, O, M):
             _close_f32(a.numpy(), b)
 
 
-@pytest.mark.parametrize("B,I,O,M", [(3, 8, 8, 37), (8, 16, 16, 301)])
+@pytest.mark.parametrize(
+    "B,I,O,M",
+    [(3, 8, 8, 37), (8, 16, 16, 301),
+     # past the 16 batch rows a CUDA block holds, I != O, M not a multiple of 4
+     (17, 12, 20, 37), (17, 20, 6, 77)],
+)
 def test_backward_plain_versions_match_pallas_bf16(interpret_pallas, B, I, O, M):
     x, w, g = _operands(1, B, I, O, M)
     # round once to bf16 so both sides see the same operands

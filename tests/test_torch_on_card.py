@@ -8,7 +8,7 @@ has none; ``tests/conftest.py`` imports JAX, so run it there with
 
 Tolerances: relative l2 <= 1e-5 (f32 operands) and 1e-3 (bf16 operands)
 for each kernel (K1, K2, K3) against its plain version on the same
-operands; the served FNO on the card against the same weights on the CPU:
+operands, and two launches of a kernel on the same inputs bit for bit; the served FNO on the card against the same weights on the CPU:
 relative l2 <= 1e-5 (f32, TF32 off). Gradients of a small FNO on the card
 against the same model's CPU gradients: relative l2 <= 1e-4 per parameter
 (f32 throughout, but a gradient sums over the batch and every grid point in
@@ -58,6 +58,8 @@ def _rel_l2(ar, ai, br, bi):
         (16, 64, 64, 2112),  # the evaluation's batch
         (5, 7, 9, 100),     # channel tails, I not a multiple of the load batch
         (13, 66, 20, 77),   # two batch tiles, ragged mode tile
+        # past the 16 rows a block holds; wider channels; more mode tiles than SMs
+        (17, 64, 64, 2112), (32, 64, 64, 2112), (32, 128, 128, 2112), (8, 64, 64, 4 * 2112),
     ],
 )
 def test_kernel_matches_plain(card, dtype, B, I, O, M):
@@ -117,6 +119,8 @@ def _parts(g, dtype, *shape, scale=1.0):
         # K3's edges: the CPU-comparison step's batch; slices too large to
         # stay resident (streamed in batch chunks); more mode tiles than SMs
         (2, 64, 64, 2112), (32, 128, 128, 2112), (8, 64, 64, 4 * 2112),
+        # K2 past the 16 rows a block holds
+        (17, 64, 64, 2112), (32, 64, 64, 2112),
     ],
 )
 def test_backward_kernels_match_plain(card, dtype, B, I, O, M):
@@ -156,6 +160,45 @@ def test_weight_grad_takes_the_planned_path(card, dtype, B, I, O, M, schedule, l
     g = tuple(torch.zeros(B, O, M, device="cuda", dtype=dtype) for _ in range(2))
     plan = tsc.mode_contraction_dw_plan(*x, *g)
     assert (plan["schedule"], plan["load"]) == (schedule, load)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert min(plan["units"], sms) <= plan["grid"] <= plan["units"]  # persistent
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,I,O,M", [(16, 64, 64, 2112), (17, 64, 64, 2112), (13, 66, 20, 77)])
+def test_contraction_launches_are_bit_identical(card, dtype, B, I, O, M):
+    """K1 and K2 sum each output in one thread over k in order: two launches
+    on the same inputs agree bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(B * 1000 + M + 11)
+    w_std = (2 / (I + O)) ** 0.5 / 2 ** 0.5
+    x = _parts(g, dtype, B, I, M)
+    w = _parts(g, dtype, I, O, M, scale=w_std)
+    grad = _parts(g, dtype, B, O, M)
+    for fn, a in ((tsc.mode_contraction, x), (tsc.mode_contraction_dx, grad)):
+        first = fn(*a, *w)
+        again = fn(*a, *w)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]), fn.__name__
+
+
+@pytest.mark.parametrize(
+    "dtype,B,I,O,M,dx,tile,reads,load",
+    [
+        (torch.float32, 1, 64, 64, 2112, False, 1, 1, "tma"),     # serve bucket 1
+        (torch.float32, 8, 64, 64, 2112, False, 8, 1, "tma"),     # serve bucket 8, train
+        (torch.float32, 16, 64, 64, 2112, False, 16, 1, "tma"),   # the evaluation
+        (torch.bfloat16, 8, 64, 64, 2112, True, 8, 1, "tma"),     # K2
+        (torch.float32, 32, 128, 128, 2112, True, 16, 2, "tma"),  # past 16 rows
+        (torch.float32, 5, 7, 9, 100, False, 8, 1, "tma"),        # rows of 400 bytes
+        (torch.bfloat16, 5, 7, 9, 100, False, 8, 1, "element"),   # rows of 200 bytes
+        (torch.float32, 13, 66, 20, 77, True, 16, 1, "element"),
+    ],
+)
+def test_contraction_takes_the_planned_path(card, dtype, B, I, O, M, dx, tile, reads, load):
+    a = tuple(torch.zeros(B, I if not dx else O, M, device="cuda", dtype=dtype) for _ in range(2))
+    w = tuple(torch.zeros(I, O, M, device="cuda", dtype=dtype) for _ in range(2))
+    plan = tsc.mode_contraction_plan(*a, *w, dx=dx)
+    assert (plan["batch_tile"], plan["weight_reads"], plan["load"]) == (tile, reads, load)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert min(plan["units"], sms) <= plan["grid"] <= plan["units"]  # persistent
 

@@ -64,7 +64,12 @@ def _jax_kernel(xr, xi, wr, wi, dtype):
     return np.moveaxis(np.asarray(o_r), 0, -1), np.moveaxis(np.asarray(o_i), 0, -1)
 
 
-@pytest.mark.parametrize("B,I,O,M", [(3, 8, 8, 37), (1, 16, 8, 301), (8, 12, 20, 130)])
+@pytest.mark.parametrize(
+    "B,I,O,M",
+    [(3, 8, 8, 37), (1, 16, 8, 301), (8, 12, 20, 130),
+     # past the 16 batch rows a CUDA block holds, I != O, M not a multiple of 4
+     (17, 12, 20, 37), (17, 20, 6, 77)],
+)
 def test_plain_matches_pallas_f32(interpret_pallas, B, I, O, M):
     ops = _operands(0, B, I, O, M)
     tr, ti = tsc.mode_contraction_reference(*map(torch.from_numpy, ops))
@@ -73,7 +78,12 @@ def test_plain_matches_pallas_f32(interpret_pallas, B, I, O, M):
     np.testing.assert_allclose(ti.numpy(), ji, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("B,I,O,M", [(3, 8, 8, 37), (8, 16, 16, 301)])
+@pytest.mark.parametrize(
+    "B,I,O,M",
+    [(3, 8, 8, 37), (8, 16, 16, 301),
+     # past the 16 batch rows a CUDA block holds, I != O, M not a multiple of 4
+     (17, 12, 20, 37), (17, 20, 6, 77)],
+)
 def test_plain_matches_pallas_bf16(interpret_pallas, B, I, O, M):
     ops = _operands(1, B, I, O, M)
     # round once to bf16 so both sides see the same operands
@@ -141,3 +151,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, error):
     with pytest.raises(error):
         tsc.mode_contraction(*bad(*ops))
 
+
+
+@pytest.mark.parametrize("dx", [False, True])
+def test_plan_raises_on_what_the_kernel_does_not_take(dx):
+    """``mode_contraction_plan`` launches nothing: it refuses operands off a
+    card, and operands that disagree in shape, as the kernel does."""
+    ops = [torch.from_numpy(a) for a in _operands(12, 2, 4, 4, 11)]
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            tsc.mode_contraction_plan(*(t.to(dev) for t in ops), dx=dx)
+    with pytest.raises(ValueError, match="disagree"):
+        tsc.mode_contraction_plan(*ops[:2], ops[2][:, :, :3], ops[3][:, :, :3], dx=dx)
