@@ -27,14 +27,18 @@ Phases, each printed with its elapsed seconds as it goes:
    serves requests through ``CompiledForward``, checks every answer, K1's
    launch count and a batch-3 answer against the same file's model on the
    CPU, and probes the latency of each bucket;
-5. eval: regenerates the flagship's test split on the card (40 trajectories
-   of the seeded pseudo-spectral solver, seed 10 000, 128², 50 000 steps
-   each, 2000 pairs) and evaluates the loaded weights on it at batch 16
-   through ``scripts.eval_ns_checkpoint.evaluate``; checks (a) one record
-   of the solver on the card against the CPU, (b) the first 32 pairs'
-   losses on the card against the CPU, (c) rel_l2 and rel_h1 within twice
-   the JAX package's figures for these weights' f32 original, and K1's
-   launch count; last, a torch.profiler table of 200 solver steps;
+5. data: generates the flagship's splits on the card through the port's
+   ``scripts.generate_ns_data`` entry point into its default directory (the
+   seeded pseudo-spectral solver at 128², 50 000 steps per trajectory):
+   8 training trajectories (400 pairs, seed 0) and the 40 test
+   trajectories of the evaluation (2000 pairs, seed 10 000);
+   eval: reads that test split through ``eval_ns_checkpoint.load_test_split``
+   and evaluates the loaded weights on it at batch 16 through
+   ``scripts.eval_ns_checkpoint.evaluate``; checks (a) one record of the
+   solver on the card against the CPU, (b) the first 32 pairs' losses on
+   the card against the CPU, (c) rel_l2 and rel_h1 within twice the JAX
+   package's figures for these weights' f32 original, and K1's launch
+   count; last, a torch.profiler table of 200 solver steps;
 6. train, in the same process after serving: builds the flagship FNO at
    full width with seeded weights, seeded 128² pairs (a fixed spectral
    filter of smooth inputs at the checkpoint normalizer's scale) and fitted
@@ -45,7 +49,27 @@ Phases, each printed with its elapsed seconds as it goes:
    step on the CPU from the same weights, and compares the loss and every
    gradient; last, a torch.profiler table of two train steps (device time
    by kernel, and the device's idle share of the host-clock window);
-7. prints one ``{"kernels": [...]}`` line, then, as the last line,
+7. recipe: the flagship training recipe (``scripts/run_flagship_v2.sh:43-53``)
+   through the port's ``scripts.train_navier_stokes`` entry point at full
+   width, cut to 400 training pairs: a fine-tune of 4 epochs warm-started
+   from the published weights under their normalizers, with
+   ``--device_dataset true`` (the staged set and the replayed CUDA graph of
+   the step), ``--save_every 2 --save_best 128_l2``, then the recipe's
+   relaunch, resumed from the saved state to epoch 6. Checks: (1) every
+   evaluation of the fine-tune after the first, and the stored best,
+   within (c)'s bounds, the first (after the fresh optimizer's warm-restart
+   bump) within ten times them, (2) the resumed run
+   starts at epoch 4 with the optimizer's count at 200 and ends at 300,
+   (3) the resumed run never raises the stored best metric, (4) the saved
+   best weights rebuild through ``models.from_checkpoint`` and score the
+   manifest's best metric, (5) K1, K2 and K3 launched once per layer and
+   step (K1 also per evaluation forward), counted from the graph's
+   replays. Then the graphed staged epoch against the loader loop from the
+   published weights over the same batches (parameters and losses), the
+   step ms of each, the device's idle share over graphed steps, the seconds
+   per save of ``model.msgpack`` and ``optimizer.msgpack``, and the peak
+   device memory;
+8. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -54,8 +78,10 @@ line. It imports nothing of JAX.
 
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -120,6 +146,52 @@ TRAIN_BATCHES, TEST_BATCHES, EPOCHS = 4, 1, 2
 # rounding compounds, so 1e-4 per parameter (the small on-card test holds
 # the same bound, tests/test_torch_on_card.py).
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-5, 1e-4
+
+# the recipe phase: scripts/run_flagship_v2.sh:43-53, cut to 400 training
+# pairs (8 trajectories) and 4 + 2 epochs, warm-started from the published
+# weights under their own normalizers (fitted on 20 000 pairs; a refit on
+# 400 shifts every input, BASELINE.md:1078-1084)
+RECIPE_TRAIN_TRAJ, RECIPE_EPOCHS, RECIPE_RESUMED_EPOCHS = 8, 4, 6
+RECIPE_PAIRS = RECIPE_TRAIN_TRAJ * 50
+RECIPE_FLAGS = [
+    "--data.n_train", str(RECIPE_PAIRS), "--data.train_resolution", "128",
+    "--data.n_tests", f"[{EVAL_PAIRS}]", "--data.test_resolutions", "[128]",
+    "--data.test_batch_sizes", f"[{EVAL_BATCH}]", "--data.batch_size", str(TRAIN_BATCH),
+    "--model.n_modes", "[64,64]", "--model.hidden_channels", "64",
+    "--model.projection_channel_ratio", "4",
+    "--opt.learning_rate", "3e-5", "--opt.weight_decay", "1e-4",
+    "--opt.training_loss", "h1", "--opt.step_size", "50", "--opt.gamma", "0.5",
+    "--opt.opt_state", "factored", "--opt.mixed_precision", "false",
+    "--device_dataset", "true", "--eval_interval", "2", "--save_every", "2",
+    "--save_best", "128_l2", "--normalizer_from", str(FLAGSHIP),
+]
+# (1) the fine-tune's evaluations. A fresh optimizer state knocks the
+# converged weights off their optimum in the first epoch, and they climb
+# back: fresh Adam's bias-corrected first steps move every weight by about
+# lr. The JAX package records this warm-restart bump (BASELINE.md:1127-1131:
+# a converged 2e-4 model knocked to ~5.5e-4 in the first epoch at lr 2e-5;
+# scripts/run_flagship_v2.sh's header), and the port shows it at the first
+# evaluation, after 50 steps at lr 3e-5 (128_l2 1.17e-3 on an H100). So
+# (c)'s bounds hold from the second evaluation on and for the stored best,
+# and the first evaluation is held to ten times them: weights that were not
+# taken, or wrong normalizers, score orders of magnitude more.
+FIRST_EVAL_FACTOR = 10.0
+# (4) the rebuilt best weights against the manifest's best metric: the same
+# forwards on the same pairs, summed per batch ("sum" reduction) in the
+# Trainer and weighted batch means in evaluate, so float64 sums of f32
+# losses in another grouping
+BEST_RELOAD_TOL = 1e-5
+# the graphed staged epochs against the loader loop from the same weights
+# over the same batches, the loop fed the staged path's precomputed H1
+# denominators (with them, H1 takes one stencil pass on the difference, which
+# rounds unlike two passes; tests/test_torch_trainer_recipe.py holds that
+# precompute to the JAX package): the same kernels on the same inputs, but
+# cuBLAS may pick other kernels under capture (1e-7 relative per sum). The
+# bf16 first moment turns such differences into whole bf16 ulps of single
+# updates, and the loss, a 2-3% residual, magnifies a parameter difference
+# some 40-fold; the published weights are all nonzero
+GRAPH_TOL = 1e-5
+GRAPH_EPOCHS, GRAPH_SEED, GRAPH_PROFILE_STEPS = 2, 11, 20
 
 _T0 = time.perf_counter()
 
@@ -367,16 +439,9 @@ def evaluate_flagship(model, processor, cpu_model) -> dict:
     from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
 
     n_layers = flagship_meta()["init_kwargs"]["n_layers"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    xs, ys = ns_solver.make_nsforcing_split(ev.TEST_TRAJECTORIES, EVAL_RES, ev.TEST_SEED,
-                                            device="cuda", **ev.SOLVER)
-    solver_s = time.perf_counter() - t0
-    steps = round(ev.SOLVER["T"] / ev.SOLVER["dt"])
-    log(f"eval: test split regenerated on the card in {solver_s:.2f} s: "
-        f"{ev.TEST_TRAJECTORIES} trajectories x {steps} steps of {EVAL_RES}², "
-        f"{len(xs)} pairs, max |w| {np.abs(xs).max():.3f}")
-    xs, ys = xs[:EVAL_PAIRS, None], ys[:EVAL_PAIRS, None]
+    xs, ys = ev.load_test_split(EVAL_RES, EVAL_PAIRS, device="cuda")
+    log(f"eval: the test split nsforcing_test_{EVAL_RES}.pt: {len(xs)} pairs, "
+        f"max |w| {np.abs(xs).max():.3f}")
     if len(xs) != EVAL_PAIRS or not (np.isfinite(xs).all() and np.isfinite(ys).all()):
         raise AssertionError(f"the split holds {len(xs)} pairs or non-finite values")
 
@@ -436,7 +501,7 @@ def evaluate_flagship(model, processor, cpu_model) -> dict:
         f"{SOLVER_PROFILE_STEPS} solver steps of {ev.TEST_TRAJECTORIES} x {EVAL_RES}²",
         lambda: ns_solver.simulate_navier_stokes_2d(w0_all, device="cuda", **window),
     )
-    return {"launches": launches, **figures, "solver_s": solver_s, "eval_s": eval_s,
+    return {"launches": launches, **figures, "eval_s": eval_s,
             "solver_rel_l2_vs_cpu": solver_err, "eval_rel_diff_vs_cpu": eval_err,
             "solver_profile": profile}
 
@@ -615,6 +680,248 @@ def profile_window(label: str, run) -> dict:
     return {"wall_ms": wall_ms, "device_ms": total, "spans": spans, "top": top}
 
 
+def generate_splits() -> dict:
+    """The recipe's training split and the evaluation's test split, written
+    by the port's generate_ns_data entry point into its default directory."""
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+    from neuraloperator_tpu_torch.scripts import generate_ns_data
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = generate_ns_data.main([
+        "--res", str(EVAL_RES), "--train-traj", str(RECIPE_TRAIN_TRAJ),
+        "--test-traj", str(ev.TEST_TRAJECTORIES), "--device", "cuda",
+    ])
+    solver_s = time.perf_counter() - t0
+    steps = round(ev.SOLVER["T"] / ev.SOLVER["dt"])
+    log(f"data: {RECIPE_TRAIN_TRAJ} + {ev.TEST_TRAJECTORIES} trajectories x {steps} steps "
+        f"of {EVAL_RES}² generated on the card in {solver_s:.2f} s: "
+        f"{', '.join(p.name for p in written.values())} in {written['test'].parent}")
+    return {"solver_s": solver_s}
+
+
+class EpochOrders:
+    """A loader whose n-th pass visits the samples in ``orders[n]`` (the last
+    order again past the end), in batches of ``batch``; ``arrays`` are
+    ``x``, ``y`` and any per-sample extras."""
+
+    def __init__(self, x, y, orders, batch: int, **extras):
+        self.arrays = {"x": x, "y": y, **extras}
+        self.orders, self.batch = orders, batch
+        self.passes = 0
+
+    def __len__(self) -> int:
+        return len(self.arrays["x"]) // self.batch
+
+    def __iter__(self):
+        order = self.orders[min(self.passes, len(self.orders) - 1)]
+        self.passes += 1
+        for i in range(0, len(order) - self.batch + 1, self.batch):
+            idx = order[i:i + self.batch]
+            yield {k: v[idx] for k, v in self.arrays.items()}
+
+
+def run_recipe_entry_point(argv, record: list) -> dict:
+    """``train_navier_stokes.main(argv)``, recording each evaluation's
+    metrics with the Trainer that ran it."""
+    from neuraloperator_tpu_torch.scripts import train_navier_stokes
+    from neuraloperator_tpu_torch.training import Trainer
+
+    evaluate_all = Trainer.evaluate_all
+
+    def recording(self, eval_step, test_loaders):
+        metrics = evaluate_all(self, eval_step, test_loaders)
+        record.append((self, metrics))
+        return metrics
+
+    Trainer.evaluate_all = recording
+    try:
+        return train_navier_stokes.main(argv)
+    finally:
+        Trainer.evaluate_all = evaluate_all
+
+
+def saved_count(save_dir) -> int:
+    from neuraloperator_tpu_torch.serialization import read_msgpack
+
+    return int(np.asarray(read_msgpack(Path(save_dir) / "optimizer.msgpack")["0"]["count"]))
+
+
+def recipe() -> dict:
+    """The flagship recipe through the port's entry point, then the graphed
+    staged epoch against the loader loop; returns the numbers."""
+    from neuraloperator_tpu_torch.data.transforms import load_data_processor
+    from neuraloperator_tpu_torch.models import from_checkpoint
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+    from neuraloperator_tpu_torch.training.training_state import load_training_state, read_manifest
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    steps_per_epoch = RECIPE_PAIRS // TRAIN_BATCH
+    batches_per_eval = EVAL_PAIRS // EVAL_BATCH
+    save_dir = Path(tempfile.mkdtemp(prefix="recipe-"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        evals: list = []
+        t0 = time.perf_counter()
+        final = run_recipe_entry_point(
+            [*RECIPE_FLAGS, "--opt.n_epochs", str(RECIPE_EPOCHS), "--save_dir", str(save_dir),
+             "--warm_start_from", str(FLAGSHIP), "--warm_start_name", CHECKPOINT], evals)
+        fine_tune_s = time.perf_counter() - t0
+        fine_tune = [m for _, m in evals]
+        manifest = read_manifest(save_dir)
+        count_saved = saved_count(save_dir)
+        log(f"recipe: fine-tune of {RECIPE_EPOCHS} epochs x {steps_per_epoch} graphed steps in "
+            f"{fine_tune_s:.1f} s; evaluations {fine_tune}; final {final}; manifest "
+            f"{manifest}; saved optimizer count {count_saved}")
+        # (1) the published weights kept their quality through the fine-tune,
+        # past the first evaluation's warm-restart bump
+        for i, m in enumerate(fine_tune):
+            factor = FIRST_EVAL_FACTOR if i == 0 else 1.0
+            if not (m["128_l2"] <= factor * REL_L2_BOUND
+                    and m["128_h1"] <= factor * REL_H1_BOUND):
+                raise AssertionError(f"(1) fine-tune evaluation {i} scores {m} (bounds "
+                                     f"{factor} x {REL_L2_BOUND}, {REL_H1_BOUND})")
+        if not manifest["best_metric"] <= REL_L2_BOUND:
+            raise AssertionError(f"(1) the fine-tune's best 128_l2 is {manifest['best_metric']}")
+
+        resumed_evals: list = []
+        t0 = time.perf_counter()
+        resumed_final = run_recipe_entry_point(
+            [*RECIPE_FLAGS, "--opt.n_epochs", str(RECIPE_RESUMED_EPOCHS), "--save_dir",
+             str(save_dir), "--resume_from_dir", str(save_dir)], resumed_evals)
+        resume_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_launches()
+        trainer = resumed_evals[-1][0]
+        manifest_after = read_manifest(save_dir)
+        log(f"recipe: resumed run to epoch {RECIPE_RESUMED_EPOCHS} in {resume_s:.1f} s; "
+            f"evaluations {[m for _, m in resumed_evals]}; final {resumed_final}; manifest "
+            f"{manifest_after}; kernel launches {launches}")
+        # (2) the relaunch goes on where the fine-tune stopped
+        total_steps = RECIPE_RESUMED_EPOCHS * steps_per_epoch
+        if not (trainer.start_epoch == RECIPE_EPOCHS
+                and count_saved == RECIPE_EPOCHS * steps_per_epoch
+                and int(trainer.optimizer.count) == total_steps == saved_count(save_dir)):
+            raise AssertionError(
+                f"(2) the resumed run started at epoch {trainer.start_epoch} from count "
+                f"{count_saved} and ended at {int(trainer.optimizer.count)}")
+        # (3) the stored best is never raised by the resumed run
+        if not manifest_after["best_metric"] <= manifest["best_metric"]:
+            raise AssertionError(f"(3) best metric {manifest['best_metric']} -> "
+                                 f"{manifest_after['best_metric']}")
+        # (4) the best weights rebuild from their files and score their metric
+        best = from_checkpoint(save_dir, "best_model", device="cuda")
+        best.load_state_dict(load_training_state(save_dir, "best_model", best.state_dict(),
+                                                 device="cuda")[0])
+        xs, ys = ev.load_test_split(EVAL_RES, EVAL_PAIRS, device="cuda")
+        rescored = ev.evaluate(best.eval(), load_data_processor(save_dir), xs, ys, EVAL_BATCH,
+                               device="cuda")
+        reload_err = abs(rescored["rel_l2"] - manifest_after["best_metric"]) / \
+            manifest_after["best_metric"]
+        log(f"recipe (4): best_model rebuilt by from_checkpoint scores {rescored}, manifest "
+            f"best {manifest_after['best_metric']:.6e}: relative difference {reload_err:.2e} "
+            f"(tol {BEST_RELOAD_TOL:.0e})")
+        if not reload_err <= BEST_RELOAD_TOL:
+            raise AssertionError(f"(4) the reloaded best scores {rescored}")
+        # (5) every kernel of the step ran once per layer and step, from the replays
+        n_evals = len(evals) + len(resumed_evals)
+        expected = {"mode_contraction": n_layers * (total_steps + n_evals * batches_per_eval),
+                    "mode_contraction_dx": n_layers * total_steps,
+                    "mode_contraction_dw": n_layers * total_steps}
+        if launches != expected:
+            raise AssertionError(f"(5) the recipe launched {launches}, expected {expected}")
+        del best, trainer, evals, resumed_evals
+        graph = graphed_against_eager()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        log(f"recipe: peak device memory {peak_mib:.0f} MiB")
+        return {"launches": launches, "fine_tune": fine_tune, "fine_tune_final": final,
+                "resumed_final": resumed_final, "manifest": manifest_after,
+                "fine_tune_s": fine_tune_s, "resume_s": resume_s,
+                "graphed_step_ms_fine_tune": 1e3 * final["epoch_time"] / steps_per_epoch,
+                "best_reload_rel_diff": reload_err, "peak_mib": peak_mib, **graph}
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+
+def graphed_against_eager() -> dict:
+    """The staged epochs as replayed CUDA graphs against the loader loop,
+    from the published weights over the same batches; step times, the idle
+    share of graphed steps and the seconds per save."""
+    from neuraloperator_tpu_torch import convert
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset, load_pt_as_numpy
+    from neuraloperator_tpu_torch.data.datasets import navier_stokes
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.serialization import write_msgpack
+    from neuraloperator_tpu_torch.training import Trainer, build_optimizer
+
+    split = load_pt_as_numpy(navier_stokes.DATA_ROOT / f"nsforcing_train_{EVAL_RES}.pt")
+    x, y = split["x"][:RECIPE_PAIRS, None], split["y"][:RECIPE_PAIRS, None]
+    shuffle = np.random.default_rng(GRAPH_SEED)
+    orders = [shuffle.permutation(RECIPE_PAIRS) for _ in range(GRAPH_EPOCHS)]
+    steps = RECIPE_PAIRS // TRAIN_BATCH
+    runs = {}
+    for staged in (True, False):
+        model, processor = load_flagship_on("cuda")
+        if staged:
+            loader = DataLoader(TensorDataset(x, y), TRAIN_BATCH)
+        else:
+            ynorm = runs[True][1].staged_step.data["_loss_ynorm_sq"].cpu().numpy()
+            loader = EpochOrders(x, y, [orders[0], *orders], TRAIN_BATCH,
+                                 _loss_ynorm_sq=ynorm)
+        trainer = Trainer(model=model, n_epochs=GRAPH_EPOCHS, data_processor=processor,
+                          device="cuda")
+        metrics = trainer.train(loader, {}, build_optimizer(OPT, steps),
+                                training_loss=H1Loss(d=2), device_dataset=staged,
+                                shuffle_seed=GRAPH_SEED)
+        torch.cuda.synchronize()
+        runs[staged] = (metrics, trainer)
+    (graphed, g_trainer), (eager, e_trainer) = runs[True], runs[False]
+    loss_err = abs(graphed["train_err"] - eager["train_err"]) / abs(eager["train_err"])
+    want = dict(e_trainer.model.named_parameters())
+    param_err = {}
+    for name, p in g_trainer.model.named_parameters():
+        ref = want[name].detach().double()
+        param_err[name] = float((p.detach().double() - ref).norm() / ref.norm())
+    worst = max(param_err, key=param_err.get)
+    step_ms = {"graphed": 1e3 * graphed["epoch_time"] / steps,
+               "loop": 1e3 * eager["epoch_time"] / steps}
+    log(f"recipe: {GRAPH_EPOCHS} staged epochs as replayed CUDA graphs vs the loader loop over "
+        f"the same batches from the published weights: train_err {graphed['train_err']:.8f} "
+        f"vs {eager['train_err']:.8f} (rel {loss_err:.2e}), parameters rel_l2 max "
+        f"{param_err[worst]:.2e} ({worst}) (tol {GRAPH_TOL:.0e}); step ms of the last epoch "
+        f"{step_ms}")
+    if not (loss_err <= GRAPH_TOL and param_err[worst] <= GRAPH_TOL):
+        raise AssertionError(f"the graphed epochs depart from the loader loop: loss "
+                             f"{loss_err}, {worst} {param_err[worst]}")
+    staged = g_trainer.staged_step
+    order = torch.from_numpy(orders[0][:GRAPH_PROFILE_STEPS * TRAIN_BATCH].reshape(
+        GRAPH_PROFILE_STEPS, TRAIN_BATCH)).to(staged.index.device)
+
+    def replays():
+        for i in range(GRAPH_PROFILE_STEPS):
+            staged(order[i])
+
+    replays()  # warm
+    profile = profile_window(f"{GRAPH_PROFILE_STEPS} graphed train steps of batch "
+                             f"{TRAIN_BATCH}", replays)
+    # seconds per save: the two files the periodic save writes, as it writes them
+    save_s = {}
+    with tempfile.TemporaryDirectory(prefix="save-") as tmp:
+        for name, tree in (("model.msgpack", lambda: convert.to_flax_params(
+                                g_trainer.model.state_dict())),
+                           ("optimizer.msgpack", g_trainer.optimizer.state_dict)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            write_msgpack(Path(tmp) / name, tree())
+            save_s[name] = time.perf_counter() - t0
+            save_s[name.replace(".msgpack", "_mb")] = (Path(tmp) / name).stat().st_size / 1e6
+    log(f"recipe: seconds per save {save_s}")
+    return {"graph_loss_rel_err": loss_err, "graph_param_rel_l2_max": param_err[worst],
+            "step_ms": step_ms, "graphed_profile": profile, "save_s": save_s}
+
+
 def kernel_line(variants, paths) -> list:
     """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
     with its launches summed over the paths and by path."""
@@ -677,20 +984,25 @@ def main() -> None:
              for name, shapes in (("mode_contraction", K12_EDGE_SHAPES),
                                   ("mode_contraction_dx", K12_EDGE_SHAPES),
                                   ("mode_contraction_dw", K3_EDGE_SHAPES))}
+    splits = generate_splits()
     model, processor = load_flagship_on("cuda")
     cpu_model, _ = load_flagship_on("cpu")
     served = serve(model, processor, cpu_model)
     evaluated = evaluate_flagship(model, processor, cpu_model)
     del model, cpu_model
     trained = train()
+    recipe_run = recipe()
 
-    kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained})
+    kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
+                                     "recipe": recipe_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
         f"eval rel_l2 {evaluated['rel_l2']:.6e} rel_h1 {evaluated['rel_h1']:.6e} (solver "
-        f"{evaluated['solver_s']:.1f} s, eval {evaluated['eval_s']:.2f} s); "
-        f"train step {trained['step_ms']:.2f} ms, peak {trained['peak_mib']:.0f} MiB")
+        f"{splits['solver_s']:.1f} s, eval {evaluated['eval_s']:.2f} s); "
+        f"train step {trained['step_ms']:.2f} ms, peak {trained['peak_mib']:.0f} MiB; recipe "
+        f"step ms {recipe_run['step_ms']}, saves {recipe_run['save_s']}, peak "
+        f"{recipe_run['peak_mib']:.0f} MiB")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,13 +1,20 @@
-"""Convert the JAX FNO's parameters into the port's ``state_dict``.
+"""Convert training state between the JAX package's trees and the port's.
 
 The JAX package keeps parameters as a nested dict (flax ``params``); the
 port's modules carry the same names at the same places, so the mapping is
 explicit and one to one: the flax path ``("fno_blocks", "conv_0",
 "w_weight")`` is the port's ``"fno_blocks.conv_0.w_weight"``. A leaf left
 over on either side, or a shape that differs, raises.
+
+Both directions are here: flax params to a ``state_dict``
+(``convert_flax_params``) and back (``to_flax_params``), and the port's
+AdamW state to optax's state tree and back (``adamw_state_to_optax``,
+``adamw_state_from_optax``), so a whole training state crosses between the
+packages. Trees are built with their keys sorted at every level, the order
+``jax.device_get`` leaves them in before the JAX package saves them.
 """
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +59,18 @@ def check_flax_params(
             )
 
 
+def as_tensor(leaf) -> torch.Tensor:
+    """A leaf (tensor, numpy array or scalar, bfloat16 numpy arrays of
+    ``ml_dtypes`` included) as a CPU tensor of its own dtype; a copy unless
+    it is a tensor already."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    arr = np.array(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def convert_flax_params(
     params: Mapping[str, Any],
     port_state: Mapping[str, torch.Tensor],
@@ -71,10 +90,106 @@ def convert_flax_params(
     check_flax_params(params, port_state)
     flat = flatten_flax(params)
 
-    def tensor(leaf):
-        return leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
-
     return {
-        name: tensor(flat[name]).to(device=device, dtype=ref.dtype)
+        name: as_tensor(flat[name]).to(device=device, dtype=ref.dtype)
         for name, ref in port_state.items()
     }
+
+
+def unflatten_flax(flat: Mapping[str, Any]) -> dict:
+    """``{"a.b": leaf}`` -> ``{"a": {"b": leaf}}``, keys sorted at every level."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        node = tree
+        *path, last = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return _sorted(tree)
+
+
+def _sorted(tree):
+    if isinstance(tree, Mapping):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The flax parameter tree of a port ``state_dict`` (the inverse of
+    ``convert_flax_params``); its leaves are the state's own tensors."""
+    return unflatten_flax({name: t.detach() for name, t in state_dict.items()})
+
+
+# optax's state of the two AdamW policies, as ``flax.serialization`` writes
+# it: the chain's tuple as {"0", "1", "2"}, each NamedTuple as a map of its
+# fields. "full" is optax.adamw: (ScaleByAdamState(count, mu, nu),
+# add_decayed_weights' empty state, ScaleByScheduleState(count)); "factored"
+# puts FactoredAdamState(count, mu, nu_row, nu_col, nu_full) first.
+_ADAM_FIELDS = {False: ("count", "mu", "nu"),
+                True: ("count", "mu", "nu_row", "nu_col", "nu_full")}
+
+
+def _port_key(field: str) -> str:
+    """The port's state key of an optax field: the factored state's
+    ``nu_full`` (the second moment of a leaf below two dims) is ``nu``."""
+    return "nu" if field == "nu_full" else field
+
+
+def adamw_state_to_optax(count: int, states: Mapping[str, Mapping[str, torch.Tensor]],
+                         factored: bool) -> dict:
+    """optax's state tree of the port's AdamW state.
+
+    ``states`` maps each parameter name to its state (``mu`` and ``nu``, or
+    ``mu``, ``nu_row`` and ``nu_col`` for a factored leaf of two or more
+    dims). A factored optimizer's state holds, as optax's does, f32 zeros of
+    shape () where a leaf has no such statistic (``nu_row`` and ``nu_col``
+    below two dims, ``nu_full`` from two dims up).
+    """
+    count_leaf = np.asarray(count, dtype=np.int32)
+    zero = np.zeros((), np.float32)
+    first = {"count": count_leaf}
+    for field in _ADAM_FIELDS[factored][1:]:
+        key = _port_key(field)
+        first[field] = unflatten_flax(
+            {n: s[key] if key in s else zero for n, s in states.items()})
+    return {"0": first, "1": {}, "2": {"count": count_leaf}}
+
+
+def adamw_state_from_optax(
+    tree: Mapping[str, Any], states: Mapping[str, Mapping[str, torch.Tensor]], factored: bool,
+) -> Tuple[int, Dict[str, Dict[str, torch.Tensor]]]:
+    """``(count, {name: {key: tensor}})`` out of optax's state tree.
+
+    ``states`` is the target optimizer's state (names, keys, shapes and
+    dtypes); each leaf is checked against it and cast to its dtype on its
+    device. Raises ``ValueError`` on a tree of another policy or of other
+    parameters, as ``flax.serialization.from_state_dict`` refuses a tree
+    that does not match its template.
+    """
+    if set(tree) != {"0", "1", "2"} or not isinstance(tree["0"], Mapping):
+        raise ValueError(f"not an AdamW state tree: top-level keys {sorted(tree)}")
+    first = tree["0"]
+    want = _ADAM_FIELDS[factored]
+    if set(first) != set(want):
+        raise ValueError(
+            f"the optimizer state holds {sorted(first)}, this optimizer's policy "
+            f"({'factored' if factored else 'full'}) keeps {sorted(want)}"
+        )
+    flat = {field: flatten_flax(first[field]) for field in want[1:]}
+    fields = {_port_key(field): field for field in want[1:]}
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, state in states.items():
+        out[name] = {}
+        for key, ref in state.items():
+            field = fields[key]
+            if name not in flat[field]:
+                raise ValueError(f"the optimizer state has no {field} for {name}")
+            leaf = flat[field][name]
+            if tuple(leaf.shape) != tuple(ref.shape):
+                raise ValueError(f"{field} of {name}: shape {tuple(leaf.shape)} != "
+                                 f"{tuple(ref.shape)}")
+            out[name][key] = as_tensor(leaf).to(device=ref.device, dtype=ref.dtype)
+    extra = set().union(*(flat[f] for f in flat)) - set(states)
+    if extra:
+        raise ValueError(f"the optimizer state has leaves of unknown parameters {sorted(extra)}")
+    return int(np.asarray(first["count"])), out

@@ -6,8 +6,9 @@ from .base_model import (
     load_flagship,
     model_from_metadata,
     register_model,
+    save_arch_metadata,
 )
 from .fno import FNO
 
 __all__ = ["FNO", "available_models", "from_checkpoint", "get_model", "load_checkpoint",
-           "load_flagship", "model_from_metadata", "register_model"]
+           "load_flagship", "model_from_metadata", "register_model", "save_arch_metadata"]

@@ -5,10 +5,14 @@ Port of the registry, ``get_model``, ``from_checkpoint`` and
 checkpoint's ``model_metadata.json`` (or ``{name}_metadata.json``) holds
 ``{"_name": ..., "_version": ..., "init_kwargs": {...}}``; the JSON
 stand-ins ``{"__callable__": name}`` and ``{"__class__": name}`` are
-resolved by name. ``load_flagship`` rebuilds a trained model, its data
-processor and its manifest from a training run's directory.
+resolved by name. A registered model records the arguments it was built
+with, and ``save_arch_metadata`` writes them in that layout, which this
+module's ``from_checkpoint`` and the JAX package's both read.
+``load_flagship`` rebuilds a trained model, its data processor and its
+manifest from a training run's directory.
 """
 
+import functools
 import inspect
 import json
 import warnings
@@ -27,10 +31,30 @@ _MODEL_REGISTRY: Dict[str, type] = {}
 _VERSION = "0.1.0"
 
 
+_NOT_ARCHITECTURE = ("self", "device", "generator")
+
+
 def register_model(cls=None, *, name: Optional[str] = None):
-    """Register a model class under ``name`` (default: the class name)."""
+    """Register a model class under ``name`` (default: the class name).
+
+    Its instances keep the arguments they were built with, defaults
+    applied, in ``_init_kwargs`` (``device`` and ``generator`` left out):
+    what ``save_arch_metadata`` writes.
+    """
 
     def wrap(c):
+        init = c.__init__
+        signature = inspect.signature(init)
+
+        @functools.wraps(init)
+        def recording_init(self, *args, **kwargs):
+            init(self, *args, **kwargs)
+            bound = signature.bind(self, *args, **kwargs)
+            bound.apply_defaults()
+            self._init_kwargs = {k: v for k, v in bound.arguments.items()
+                                 if k not in _NOT_ARCHITECTURE}
+
+        c.__init__ = recording_init
         _MODEL_REGISTRY[(name or c.__name__).lower()] = c
         return c
 
@@ -74,21 +98,28 @@ def _resolve(value):
     return value
 
 
-def get_model(config: Mapping, *, device="cuda",
+def get_model(config, *, device="cuda",
               generator: Optional[torch.Generator] = None) -> torch.nn.Module:
     """Build a model from a config with ``model_arch`` and init kwargs.
 
-    ``config`` is either the model dict itself or holds it under
-    ``"model"``. Keys the model does not take are ignored with a warning.
+    ``config`` (a dict or a config with ``to_dict()``) is either the model
+    dict itself or holds it under ``"model"``. ``data_channels`` becomes
+    ``in_channels``, multiplied by ``patching.levels + 1`` when the config
+    has a patching section, as in the JAX package. Keys the model does not
+    take are ignored with a warning.
     """
+    if hasattr(config, "to_dict"):
+        config = config.to_dict()
     model_cfg = dict(config.get("model", config))
-    arch = model_cfg.pop("model_arch", None)
+    arch = model_cfg.pop("model_arch", None) or model_cfg.pop("arch", None)
     if arch is None:
         raise ValueError("config.model must define 'model_arch'")
     cls = get_model_class(arch)
-    accepted = set(inspect.signature(cls.__init__).parameters) - {
-        "self", "device", "generator"
-    }
+    data_channels = model_cfg.pop("data_channels", None)
+    if data_channels is not None:
+        levels = config.get("patching", {}).get("levels", 0) if "patching" in config else 0
+        model_cfg["in_channels"] = data_channels * (levels + 1) if levels else data_channels
+    accepted = set(inspect.signature(cls.__init__).parameters) - set(_NOT_ARCHITECTURE)
     kwargs = {}
     for k, v in model_cfg.items():
         if k in accepted:
@@ -125,6 +156,39 @@ def from_checkpoint(save_folder, save_name: str, extra_kwargs: Optional[dict] = 
     if extra_kwargs:
         meta = {**meta, "init_kwargs": {**meta["init_kwargs"], **extra_kwargs}}
     return model_from_metadata(meta, device=device)
+
+
+def _json_value(value):
+    """An init argument as the JAX package's metadata writes it."""
+    if callable(value) and not isinstance(value, type):
+        return {"__callable__": getattr(value, "__name__", str(value))}
+    if isinstance(value, type):
+        return {"__class__": value.__name__}
+    if isinstance(value, tuple):
+        return list(value)
+    return value
+
+
+def save_arch_metadata(module: torch.nn.Module, save_folder, save_name: str) -> Path:
+    """Write ``{save_name}_metadata.json`` (architecture name and init
+    kwargs), from which this package's ``from_checkpoint`` and
+    ``model_from_metadata`` and the JAX package's ``from_checkpoint``
+    rebuild the model. Raises ``ValueError`` for a module that was not built
+    through a registered model class."""
+    kwargs = getattr(module, "_init_kwargs", None)
+    if kwargs is None:
+        raise ValueError(f"{type(module).__name__} records no init kwargs: it is not a "
+                         "registered model")
+    folder = Path(save_folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    meta = {
+        "_name": type(module).__name__,
+        "_version": _VERSION,
+        "init_kwargs": {k: _json_value(v) for k, v in kwargs.items()},
+    }
+    path = folder / f"{save_name}_metadata.json"
+    path.write_text(json.dumps(meta, indent=2))
+    return path
 
 
 def load_checkpoint(module: torch.nn.Module, save_folder, save_name: str) -> torch.nn.Module:

@@ -28,7 +28,7 @@ K2 and K3 backward, with the dtype casts of the JAX ``_pallas_bwd``.
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Mapping, Tuple
 
 import torch
 
@@ -257,6 +257,24 @@ def mode_contraction_dw_plan(xr, xi, gr, gi) -> dict:
 mode_contraction.launches = 0
 mode_contraction_dx.launches = 0
 mode_contraction_dw.launches = 0
+_COUNTED = (mode_contraction, mode_contraction_dx, mode_contraction_dw)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each kernel wrapper's launch count, by the wrapper's name."""
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def add_launches(counts: Mapping[str, int]) -> None:
+    """Add ``counts`` (by wrapper name) to the wrappers' launch counts.
+
+    A CUDA graph that holds these kernels launches them on every replay
+    without calling the wrappers; its owner counts the replay here, and
+    takes back what the wrappers counted while the graph was captured
+    (capture runs no kernel).
+    """
+    for fn in _COUNTED:
+        fn.launches += counts.get(fn.__name__, 0)
 
 
 class ModeContraction(torch.autograd.Function):

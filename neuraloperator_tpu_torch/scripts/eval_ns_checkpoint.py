@@ -7,8 +7,9 @@ reproducible standalone. The architecture comes from the directory's
 copy is evaluated in float32), the normalizers from its
 ``data_processor.json`` or from ``--normalizer_from``'s.
 
-The test split is ``nsforcing_test_{res}.pt`` under ``--data_dir`` when it
-exists. Otherwise it is regenerated in memory by the seeded solver, as
+The test split is ``nsforcing_test_{res}.pt`` under ``--data_dir`` (by
+default the loaders' root, ``data/datasets/navier_stokes.DATA_ROOT``, where
+``generate_ns_data`` writes it) when it exists. Otherwise it is regenerated in memory by the seeded solver, as
 ``scripts/generate_ns_data.py`` makes it (40 trajectories, seed 10 000):
 nothing is written.
 
@@ -26,14 +27,12 @@ import numpy as np
 import torch
 
 from .._common import resolve_device
-from ..data.datasets import load_pt_as_numpy
+from ..data.datasets import load_pt_as_numpy, navier_stokes
 from ..data.datasets.ns_solver import make_nsforcing_split
 from ..data.transforms import load_data_processor
 from ..losses import H1Loss, LpLoss
 from ..models import load_flagship
 
-# where scripts/generate_ns_data.py writes its splits
-DATA_DIR = Path(__file__).resolve().parents[2] / "neuraloperator_tpu/data/datasets/data"
 # its test split: seed 0 + 10_000, 40 trajectories of its default solver settings
 TEST_SEED = 10_000
 TEST_TRAJECTORIES = 40
@@ -69,9 +68,10 @@ def evaluate(model, processor, xs, ys, batch: int, device="cuda") -> dict:
     return {"pairs": n, "rel_l2": float(tot_l2) / n, "rel_h1": float(tot_h1) / n}
 
 
-def load_test_split(res: int, n_test: int, data_dir=DATA_DIR, device="cuda"):
-    """The first ``n_test`` test pairs at ``res``, as (N, 1, res, res) arrays."""
-    test_pt = Path(data_dir) / f"nsforcing_test_{res}.pt"
+def load_test_split(res: int, n_test: int, data_dir=None, device="cuda"):
+    """The first ``n_test`` test pairs at ``res``, as (N, 1, res, res) arrays,
+    from ``data_dir`` (``navier_stokes.DATA_ROOT`` when None)."""
+    test_pt = Path(data_dir or navier_stokes.DATA_ROOT) / f"nsforcing_test_{res}.pt"
     if test_pt.exists():
         data = load_pt_as_numpy(test_pt)
         xs, ys = data["x"], data["y"]
@@ -92,8 +92,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--res", type=int, default=128)
     p.add_argument("--n_test", type=int, default=2000)
     p.add_argument("--batch", type=int, default=16)
-    p.add_argument("--data_dir", default=str(DATA_DIR),
-                   help="where nsforcing_test_{res}.pt is looked for")
+    p.add_argument("--data_dir", default=None,
+                   help="where nsforcing_test_{res}.pt is looked for (default: the "
+                        "loaders' data root)")
     p.add_argument("--device", default="cuda")
     return p
 

@@ -20,38 +20,54 @@ uses ``lr(0)``), then cast to the parameter's dtype and scaled by the
 ``Trainer``'s per-epoch factor in f32. The port keeps the JAX parameter
 layouts (``convert.py``), so "the last two axes" are the same axes in both
 packages.
+
+The step count, the learning rate and the bias corrections live in device
+tensors and are updated by device ops inside ``step``, as optax computes
+them (f32 arithmetic on an int32 count): a step reads nothing back to the
+host, so a CUDA graph can capture it and every replay sees the count of its
+own step. ``state_dict`` and ``load_state_dict`` speak optax's state tree
+(``convert.adamw_state_to_optax``), so the port and the JAX package resume
+each other's ``optimizer.msgpack``.
 """
 
-from typing import Callable, Iterable, Optional, Union
+from typing import Callable, Iterable, Optional, Sequence, Union
 
-import numpy as np
 import torch
 
 from .._common import not_ported
+from ..convert import adamw_state_from_optax, adamw_state_to_optax
 
-Schedule = Callable[[int], float]
+Schedule = Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]
+
+
+class StepLRSchedule:
+    """Staircase decay by ``gamma`` every ``transition`` updates.
+
+    Called with a Python int it gives a float; called with the optimizer's
+    int32 count tensor it gives an f32 tensor on the count's device, formed
+    as ``optax.exponential_decay(staircase=True)`` forms it:
+    ``base * gamma ** floor(f32(count) / transition)`` in f32 (the count is
+    never negative, so optax's ``where(count <= 0, base, ...)`` is the
+    same value).
+    """
+
+    def __init__(self, base_lr: float, transition: int, gamma: float):
+        if transition <= 0:
+            raise ValueError(f"step_size * steps_per_epoch must be positive, got {transition}")
+        self.base_lr, self.transition, self.gamma = base_lr, transition, gamma
+
+    def __call__(self, count):
+        if isinstance(count, torch.Tensor):
+            p = torch.floor(count.float() / self.transition)
+            return self.base_lr * torch.pow(self.gamma, p)
+        return self.base_lr * self.gamma ** (count // self.transition)
 
 
 def step_lr(base_lr: float, step_size: int, gamma: float = 0.5,
-            steps_per_epoch: int = 1) -> Schedule:
+            steps_per_epoch: int = 1) -> StepLRSchedule:
     """Staircase decay by ``gamma`` every ``step_size`` epochs, as a schedule
     of the update count (``optax.exponential_decay(staircase=True)``)."""
-    transition = step_size * steps_per_epoch
-    if transition <= 0:
-        raise ValueError(f"step_size * steps_per_epoch must be positive, got {transition}")
-
-    def schedule(count: int) -> float:
-        return base_lr * gamma ** (count // transition)
-
-    return schedule
-
-
-def _bias_correction(decay: float, count: int) -> float:
-    """``1 - decay ** count`` in f32, as optax forms it: with ``decay``
-    rounded to f32 first (for 0.999 that alone moves ``1 - decay`` by
-    1.3e-5 relative from its value in double)."""
-    one, d = np.float32(1.0), np.float32(decay)
-    return float(one - d ** np.float32(count))
+    return StepLRSchedule(base_lr, step_size * steps_per_epoch, gamma)
 
 
 def _is_factored(p: torch.Tensor) -> bool:
@@ -62,12 +78,19 @@ class AdamW(torch.optim.Optimizer):
     """AdamW with optax's semantics, full or factored second moment.
 
     ``step(lr_scale=...)`` applies one update from the parameters'
-    ``.grad``; ``lr_scale`` is the per-epoch scheduler factor the
-    ``Trainer`` multiplies every update by (in f32, after the cast to the
-    parameter's dtype, as the JAX ``Trainer`` does). A parameter without a
-    gradient (``.grad`` is None, as for one that does not reach the loss)
-    takes a zero gradient, as optax gives every leaf one: weight decay and
-    the decaying moments still move it.
+    ``.grad``; ``lr_scale`` (a float or an f32 0-d tensor on the
+    parameters' device) is the per-epoch scheduler factor the ``Trainer``
+    multiplies every update by (in f32, after the cast to the parameter's
+    dtype, as the JAX ``Trainer`` does). A parameter without a gradient
+    (``.grad`` is None, as for one that does not reach the loss) takes a
+    zero gradient, as optax gives every leaf one: weight decay and the
+    decaying moments still move it.
+
+    ``count`` is an int32 0-d tensor on the parameters' device, and every
+    parameter's state is made when the optimizer is: a step allocates no
+    state and synchronises with nothing. ``names`` (one per parameter, the
+    ``state_dict`` names the JAX parameter tree uses) are needed only by
+    ``state_dict`` and ``load_state_dict``.
     """
 
     def __init__(
@@ -79,17 +102,35 @@ class AdamW(torch.optim.Optimizer):
         eps: float = 1e-8,
         mu_dtype: Optional[torch.dtype] = None,
         factored_second_moment: bool = False,
+        names: Optional[Sequence[str]] = None,
     ):
+        params = list(params)
+        if names is not None and len(names) != len(params):
+            raise ValueError(f"{len(names)} names for {len(params)} parameters")
         defaults = dict(weight_decay=weight_decay, betas=tuple(betas), eps=eps)
         super().__init__(params, defaults)
         self.learning_rate = learning_rate
         self.mu_dtype = mu_dtype
         self.factored = factored_second_moment
-        self.count = 0  # optax's shared step count
+        self.names = None if names is None else list(names)
+        device = params[0].device
+        # optax's shared step count; the rate and the bias corrections
+        # (1 - b1 ** count, 1 - b2 ** count) of the last step
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+        self.bias_correction = torch.zeros(2, dtype=torch.float32, device=device)
+        for p in params:
+            self.state[p].update(self._init_state(p))
 
-    def _lr(self, count: int) -> float:
+    def _set_lr(self) -> None:
+        """``self.lr`` := the rate at the current count (f32, on the device)."""
         lr = self.learning_rate
-        return lr(count) if callable(lr) else lr
+        if callable(lr):
+            lr = lr(self.count)
+        if isinstance(lr, torch.Tensor):
+            self.lr.copy_(lr)
+        else:
+            self.lr.fill_(lr)
 
     def _init_state(self, p: torch.Tensor) -> dict:
         # second-moment statistics are f32 whatever the parameter's dtype
@@ -106,17 +147,21 @@ class AdamW(torch.optim.Optimizer):
     def step(self, closure=None, lr_scale: float = 1.0):
         if closure is not None:
             raise not_ported("AdamW.step(closure)", "the rest of losses, training and data")
-        lr = self._lr(self.count)  # the schedule sees the count before the increment
-        self.count += 1
+        self._set_lr()  # the schedule sees the count before the increment
+        lr = self.lr
+        self.count.add_(1)
+        count = self.count.float()
         for group in self.param_groups:
             b1, b2 = group["betas"]
-            b1c, b2c = (_bias_correction(b, self.count) for b in (b1, b2))
+            # 1 - decay ** count in f32, with decay rounded to f32 as optax
+            # rounds it (for 0.999 that alone moves 1 - decay by 1.3e-5
+            # relative from its value in double)
+            for k, b in enumerate((b1, b2)):
+                self.bias_correction[k].copy_(1 - torch.pow(b, count))
+            b1c, b2c = self.bias_correction[0], self.bias_correction[1]
             for p in group["params"]:
                 g = torch.zeros_like(p) if p.grad is None else p.grad
-                state = self.state[p]
-                if not state:
-                    state.update(self._init_state(p))
-                u = self._adam_direction(g, state, b1, b2, b1c, b2c, group["eps"])
+                u = self._adam_direction(g, self.state[p], b1, b2, b1c, b2c, group["eps"])
                 # add_decayed_weights, then scale_by_learning_rate
                 u = u + group["weight_decay"] * p
                 u = -lr * u
@@ -156,6 +201,29 @@ class AdamW(torch.optim.Optimizer):
         m_hat = m.float() / b1c
         return m_hat / (torch.sqrt(v / b2c) + eps)
 
+    def _named_states(self):
+        if self.names is None:
+            raise ValueError("this AdamW was made without parameter names; bind it with "
+                             "named parameters to save or load its state")
+        return dict(zip(self.names, (self.state[p] for p in self.param_groups[0]["params"])))
+
+    def state_dict(self) -> dict:
+        """The state as optax's state tree (``convert.adamw_state_to_optax``):
+        the tree the JAX package saves as ``optimizer.msgpack``. Its leaves
+        are this optimizer's own tensors, not copies."""
+        return adamw_state_to_optax(int(self.count), self._named_states(), self.factored)
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Copy an optax state tree (``state_dict``'s layout, with arrays or
+        tensors of the same names and shapes) into this optimizer's state."""
+        states = self._named_states()
+        count, loaded = adamw_state_from_optax(state_dict, states, self.factored)
+        self.count.fill_(count)
+        for name, state in states.items():
+            for key, value in loaded[name].items():
+                state[key].copy_(value)
+
 
 class AdamWTransform:
     """What ``adamw`` returns: the optimizer's settings, bound by the ``Trainer``.
@@ -167,7 +235,13 @@ class AdamWTransform:
     def __init__(self, **settings):
         self.settings = settings
 
-    def bind(self, params: Iterable[torch.Tensor]) -> AdamW:
+    def bind(self, params) -> AdamW:
+        """``params``: tensors, or ``(name, tensor)`` pairs such as
+        ``model.named_parameters()`` (needed to save and load the state)."""
+        params = list(params)
+        if params and isinstance(params[0], tuple):
+            names, params = zip(*params)
+            return AdamW(params, names=names, **self.settings)
         return AdamW(params, **self.settings)
 
 
@@ -260,4 +334,5 @@ class StepLR:
 
 
 
-__all__ = ["AdamW", "AdamWTransform", "StepLR", "adamw", "build_optimizer", "step_lr"]
+__all__ = ["AdamW", "AdamWTransform", "StepLR", "StepLRSchedule", "adamw", "build_optimizer",
+           "step_lr"]

@@ -1,25 +1,36 @@
-"""Trainer: the epoch loop over a loader, train and eval steps (port of
-``neuraloperator_tpu/training/trainer.py``).
+"""Trainer: the epoch loop, train and eval steps, checkpoints and resume (port
+of ``neuraloperator_tpu/training/trainer.py``).
 
 Dict batches ``{'x', 'y', ...}`` flow through ``data_processor.preprocess``
 -> model -> f32 output -> ``postprocess`` -> loss, as in the JAX
-``Trainer``. Each train step is eager PyTorch: forward, ``backward`` (the
-spectral layers' backward runs the contraction kernels K2 and K3 on the
-card) and one update of the bound optimizer, scaled by the per-epoch
-scheduler's factor. Evaluation gives the ``{loader}_{loss}`` metric dict.
+``Trainer``. A train step is forward, ``backward`` (the spectral layers'
+backward runs the contraction kernels K2 and K3 on the card) and one update
+of the bound optimizer, scaled by the per-epoch scheduler's factor.
+Evaluation gives the ``{loader}_{loss}`` metric dict.
 
-Ported: the single-device loader loop. Options of the JAX ``Trainer`` that
-are not ported raise ``NotImplementedError`` naming their ROADMAP item.
+Two ways through an epoch, as in the JAX package: the loader loop (one
+eager step per batch), and ``device_dataset``, which stages the training
+set on the device once and gathers each shuffled batch there by index; on
+the card that step is one CUDA graph, replayed (``staged_step.py``).
+Checkpoints are the JAX package's files (``training_state.py``): a run of
+either package resumes, or warm-starts from, the other's.
 """
 
+import json
 import time
+import warnings
+from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from .._common import not_ported, resolve_device
+from ..data.transforms import DefaultDataProcessor
 from ..losses import LpLoss
+from ..models import base_model  # a module: base_model imports this package too
+from .staged_step import StagedStep
+from .training_state import load_training_state, read_manifest, save_training_state
 
 
 class Trainer:
@@ -58,6 +69,8 @@ class Trainer:
         self.eval_interval = eval_interval
         self.verbose = verbose
         self.optimizer = None
+        self.start_epoch = 0
+        self.staged_step: Optional[StagedStep] = None
 
     # ------------------------------------------------------------------ #
     def _put(self, batch: dict) -> dict:
@@ -97,7 +110,8 @@ class Trainer:
                 )
             return loss
 
-        def step(batch, lr_scale: float) -> torch.Tensor:
+        def step(batch, lr_scale) -> torch.Tensor:
+            # nothing here reads the device: the staged path captures it
             model.train()
             optimizer.zero_grad(set_to_none=True)
             loss = loss_fn(batch)
@@ -125,6 +139,55 @@ class Trainer:
 
         return step
 
+    def _stage(self, train_loader, batch_size: int, train_step, training_loss) -> StagedStep:
+        """The loader's batches, in its order, as one set on the device."""
+        stacked: Dict[str, list] = {}
+        for batch in train_loader:
+            for k, v in batch.items():
+                stacked.setdefault(k, []).append(np.asarray(v))
+        data = {k: torch.from_numpy(np.concatenate(v)).to(self.device)
+                for k, v in stacked.items()}
+        if len(data["x"]) < batch_size:
+            raise ValueError(f"{len(data['x'])} staged samples hold no batch of {batch_size}")
+        # a loss whose relative denominator depends on the target alone
+        # (H1Loss.ynorm_sq) gets it once over the staged set: each step then
+        # runs one finite-difference pass, on the difference
+        dp = self.data_processor
+        if hasattr(training_loss, "ynorm_sq") and (
+                dp is None or isinstance(dp, DefaultDataProcessor)):
+            with torch.no_grad():
+                sample = dp.preprocess(dict(data), train=True) if dp is not None else data
+                data["_loss_ynorm_sq"] = training_loss.ynorm_sq(sample["y"])
+        return StagedStep(train_step, data, batch_size)
+
+    def _staged_epoch(self, staged: StagedStep, perm: np.ndarray, lr_scale: float,
+                      epoch_scan_chunk: Optional[int]) -> float:
+        """One epoch over the staged set in the order ``perm``; its ``train_err``.
+
+        As the JAX epoch program: the trailing partial batch is dropped; with
+        ``epoch_scan_chunk`` below the epoch's batch count, the epoch runs
+        as equal chunks of ``nb_total // k_chunks`` steps (the last
+        ``nb_total % k_chunks`` batches dropped) and ``train_err`` is the
+        mean of the chunks' mean losses. The host reads the device once.
+        """
+        batch_size = staged.index.shape[0]
+        nb_total = len(perm) // batch_size
+        k_chunks = 1
+        if epoch_scan_chunk is not None and nb_total > epoch_scan_chunk:
+            k_chunks = -(-nb_total // epoch_scan_chunk)
+        steps = nb_total // k_chunks
+        order = torch.from_numpy(
+            perm[:k_chunks * steps * batch_size].reshape(k_chunks, steps, batch_size)
+        ).to(self.device)
+        staged.lr_scale.fill_(lr_scale)
+        chunk_sums = torch.zeros(k_chunks, dtype=torch.float64, device=self.device)
+        for c in range(k_chunks):
+            staged.loss_sum.zero_()
+            for i in range(steps):
+                staged(order[c, i])
+            chunk_sums[c] = staged.loss_sum
+        return float((chunk_sums / steps).mean())
+
     # ------------------------------------------------------------------ #
     def train(
         self,
@@ -148,30 +211,46 @@ class Trainer:
         epoch_scan_chunk: Optional[int] = None,
         shuffle_seed: int = 0,
     ) -> Dict[str, float]:
-        """Train for ``n_epochs`` and return the last metrics.
+        """Train from ``start_epoch`` to ``n_epochs`` and return the last metrics.
 
         ``optimizer`` is what ``training.adamw`` or ``build_optimizer``
-        returns; it is bound to the model's parameters here, so its state
-        starts fresh, as the JAX ``Trainer`` initialises its optax state.
-        ``scheduler`` follows the per-epoch protocol: after every epoch the
-        Trainer calls ``scheduler.step()`` (``step(train_err)`` when it
-        declares ``needs_metric``) and multiplies the updates by
+        returns; it is bound to the model's named parameters here, so its
+        state starts fresh, as the JAX ``Trainer`` initialises its optax
+        state. ``scheduler`` follows the per-epoch protocol: after every
+        epoch the Trainer calls ``scheduler.step()`` (``step(train_err)``
+        when it declares ``needs_metric``) and multiplies the updates by
         ``scheduler.factor``. The returned dict holds ``train_err`` and
         ``epoch_time`` of the last epoch and the last evaluation's
         ``{loader}_{loss}`` entries.
+
+        As in the JAX ``Trainer``:
+
+        * ``warm_start_from``: load the weights of ``{warm_start_name}.msgpack``
+          there, keeping the fresh optimizer state and epoch (with
+          ``warm_start_opt``, also the donor's ``optimizer.msgpack``; a
+          donor without one, or of another optimizer, warns and keeps the
+          fresh state). Ignored when resuming.
+        * ``resume_from_dir``: restore ``model.msgpack``, the optimizer state
+          and the epoch there, and go on at ``epoch + 1``; with
+          ``save_best``, the manifest's best metric for the same key is the
+          one to beat. A fresh run that saves into ``save_dir`` deletes a
+          stale ``manifest.json`` there first.
+        * ``save_best``: after every evaluation that lowers that metric,
+          save ``best_model.msgpack`` (no epoch, so the resume epoch stays
+          the periodic save's); ``save_every``: save ``model.msgpack`` and
+          ``optimizer.msgpack`` every that many epochs, and once more after
+          the last epoch. Either also writes the architecture sidecars and
+          ``data_processor.json``.
+        * ``device_dataset``: stage the loader's batches once on the device
+          and run each epoch over them in the order of
+          ``np.random.default_rng(shuffle_seed).permutation``, on the card
+          as a replayed CUDA graph; ``epoch_scan_chunk`` splits an epoch
+          into equal chunks (``_staged_epoch``).
         """
-        del save_dir, warm_start_name, pushforward, shuffle_seed  # no effect here
-        if save_every is not None or save_best is not None:
-            raise not_ported("Trainer.train save_every/save_best", "checkpoint save/resume")
-        if resume_from_dir is not None or warm_start_from is not None or warm_start_opt:
-            raise not_ported(
-                "Trainer.train resume_from_dir/warm_start_from", "checkpoint save/resume"
-            )
+        del pushforward  # read only by rollout training
         if rollout_steps > 1:
             raise not_ported("Trainer.train rollout_steps > 1",
                              "the rest of losses, training and data")
-        if device_dataset or epoch_scan_chunk is not None:
-            raise not_ported("Trainer.train device_dataset/epoch_scan_chunk", "device_dataset")
         if not hasattr(optimizer, "bind"):
             raise TypeError(
                 "optimizer must be what training.adamw or build_optimizer returns, "
@@ -188,23 +267,40 @@ class Trainer:
         first_batch = next(iter(train_loader))
         if "x" not in first_batch or "y" not in first_batch:
             raise ValueError(f"batches must hold 'x' and 'y', got keys {sorted(first_batch)}")
-        self.optimizer = optimizer.bind(self.model.parameters())
+        self.optimizer = optimizer.bind(self.model.named_parameters())
+        if warm_start_from is not None and resume_from_dir is None:
+            self._warm_start(warm_start_from, warm_start_name, warm_start_opt)
+        if resume_from_dir is not None and Path(resume_from_dir).exists():
+            self._resume(resume_from_dir)
+
         train_step = self._build_train_step(training_loss, regularizer)
         eval_step = self._build_eval_step(eval_losses)
+        shuffle_rng = np.random.default_rng(shuffle_seed)
+        self.staged_step = None
+        if device_dataset:
+            self.staged_step = self._stage(train_loader, len(first_batch["x"]), train_step,
+                                           training_loss)
+        saving = save_every is not None or save_best is not None
+        best_metric = self._prepare_save_dir(save_dir, saving, save_best, resume_from_dir)
 
         all_metrics: Dict[str, float] = {}
-        for epoch in range(self.n_epochs):
+        for epoch in range(self.start_epoch, self.n_epochs):
             t0 = time.perf_counter()
             if self.data_processor is not None and hasattr(self.data_processor, "step"):
                 self.data_processor.step(epoch)
             lr_scale = float(np.float32(getattr(scheduler, "factor", 1.0)))
-            # float64 on the device: the JAX Trainer sums Python floats
-            loss_sum = torch.zeros((), dtype=torch.float64, device=self.device)
-            n_batches = 0
-            for batch in train_loader:
-                loss_sum += train_step(self._put(batch), lr_scale)
-                n_batches += 1
-            train_err = float(loss_sum) / max(n_batches, 1)
+            if self.staged_step is not None:
+                perm = shuffle_rng.permutation(len(self.staged_step.data["x"]))
+                train_err = self._staged_epoch(self.staged_step, perm, lr_scale,
+                                               epoch_scan_chunk)
+            else:
+                # float64 on the device: the JAX Trainer sums Python floats
+                loss_sum = torch.zeros((), dtype=torch.float64, device=self.device)
+                n_batches = 0
+                for batch in train_loader:
+                    loss_sum += train_step(self._put(batch), lr_scale)
+                    n_batches += 1
+                train_err = float(loss_sum) / max(n_batches, 1)
             if scheduler is not None:
                 if getattr(scheduler, "needs_metric", False):
                     scheduler.step(train_err)
@@ -220,7 +316,94 @@ class Trainer:
                 if self.verbose:
                     msg = ", ".join(f"{k}={v:.5f}" for k, v in eval_metrics.items())
                     print(f"[{epoch}] time={epoch_time:.2f}s train={train_err:.5f} {msg}")
+                metric = eval_metrics.get(save_best)
+                if metric is not None and metric < best_metric:
+                    best_metric = metric
+                    # epoch=None: the best save must not move the manifest's
+                    # resume epoch past the periodic save it rides with
+                    save_training_state(
+                        save_dir, "best_model", self.model.state_dict(), epoch=None,
+                        extra_manifest={"best_metric": float(metric), "best_epoch": epoch,
+                                        "best_key": save_best},
+                    )
+            if save_every is not None and epoch % save_every == 0:
+                save_training_state(save_dir, "model", self.model.state_dict(),
+                                    self.optimizer.state_dict(), epoch=epoch)
+        if saving:
+            save_training_state(save_dir, "model", self.model.state_dict(),
+                                self.optimizer.state_dict(), epoch=self.n_epochs - 1)
         return all_metrics
+
+    def _warm_start(self, src, name: str, with_optimizer: bool) -> None:
+        """Weights (and, asked, the optimizer state) of another run; the
+        epoch and the schedule's position stay fresh."""
+        template = self.model.state_dict()
+        state, _, src_epoch = load_training_state(src, name, template, device=self.device)
+        self.model.load_state_dict(state)
+        opt_state = None
+        if with_optimizer:
+            try:
+                _, opt_state, _ = load_training_state(
+                    src, name, template, self.optimizer.state_dict(), device=self.device)
+                if opt_state is None:
+                    warnings.warn(f"warm_start_opt=True but no optimizer.msgpack under {src}; "
+                                  "continuing with a fresh optimizer state")
+                else:
+                    self.optimizer.load_state_dict(opt_state)
+            except ValueError as e:  # the donor used another optimizer
+                opt_state = None
+                warnings.warn(f"warm_start_opt=True but the donor optimizer state under {src} "
+                              f"does not match this run's optimizer ({e}); continuing with a "
+                              "fresh state")
+        if self.verbose:
+            print(f"warm-starting params from {src}/{name} (source epoch {src_epoch}, "
+                  f"optimizer state {'loaded' if opt_state is not None else 'fresh'})")
+
+    def _resume(self, src) -> None:
+        state, opt_state, epoch = load_training_state(
+            src, "model", self.model.state_dict(), self.optimizer.state_dict(),
+            device=self.device)
+        self.model.load_state_dict(state)
+        if opt_state is not None:
+            self.optimizer.load_state_dict(opt_state)
+        if epoch is not None:
+            self.start_epoch = epoch + 1
+        if self.verbose:
+            print(f"resuming from {src} at epoch {self.start_epoch}")
+
+    def _prepare_save_dir(self, save_dir, saving: bool, save_best, resume_from_dir) -> float:
+        """The best metric to beat; writes the sidecars of a saving run."""
+        best_metric = float("inf")
+        if resume_from_dir is not None and save_best is not None:
+            # a resumed run must not let its first (typically worse) eval
+            # overwrite the stored best_model
+            manifest = read_manifest(resume_from_dir, tolerate_damage=True) or {}
+            if manifest.get("best_key") == save_best:
+                best_metric = float(manifest.get("best_metric", float("inf")))
+        elif resume_from_dir is None and save_dir is not None and saving:
+            # a fresh run into a reused save_dir: a stale manifest must not
+            # carry its best_metric or epoch into this run's saves
+            stale = Path(save_dir) / "manifest.json"
+            if stale.exists():
+                stale.unlink()
+        if saving:
+            # architecture sidecars, so that the weights rebuild without the
+            # training script (scripts/serve_model.py, models.from_checkpoint)
+            try:
+                base_model.save_arch_metadata(self.model, save_dir, "model")
+                if save_best is not None:
+                    base_model.save_arch_metadata(self.model, save_dir, "best_model")
+            except ValueError:
+                pass  # not a registered model: the weights are still saved
+            # the fitted normalizers, which do not change while training
+            if self.data_processor is not None and hasattr(self.data_processor, "state_dict"):
+                try:
+                    Path(save_dir).mkdir(parents=True, exist_ok=True)
+                    (Path(save_dir) / "data_processor.json").write_text(
+                        json.dumps(self.data_processor.state_dict()))
+                except (TypeError, ValueError):
+                    pass
+        return best_metric
 
     # ------------------------------------------------------------------ #
     def evaluate_all(self, eval_step, test_loaders: Dict) -> Dict[str, float]:

@@ -12,6 +12,7 @@ contraction and DFTs sum in another order).
 """
 
 import json
+import shutil
 from pathlib import Path
 
 import jax
@@ -147,12 +148,22 @@ def test_checkpoint_without_params_raises(saved, tmp_path):
         load_checkpoint(model_from_metadata(_small_flagship(), device="cpu"), tmp_path, "x")
 
 
-def test_optimizer_state_is_not_ported(saved):
+def test_optimizer_state_is_not_ported(saved, tmp_path):
+    """The optimizer state is ported now (checkpoint save/resume): as in the
+    JAX package, a directory without ``optimizer.msgpack`` gives no
+    optimizer state, and one whose tree does not match the template raises
+    (``tests/test_torch_training_state.py`` covers the matching case)."""
     root, _, _ = saved
     template = model_from_metadata(_small_flagship(), device="meta").state_dict()
-    with pytest.raises(NotImplementedError, match="checkpoint save/resume"):
-        load_training_state(root, "best_model", template, opt_state_template={},
-                            device="cpu")
+    state, opt_state, epoch = load_training_state(root, "best_model", template,
+                                                  opt_state_template={}, device="cpu")
+    assert opt_state is None and epoch == EPOCH and set(state) == set(template)
+    shutil.copytree(root, tmp_path / "run")
+    (tmp_path / "run/optimizer.msgpack").write_bytes(
+        (root / "best_model_f16.msgpack").read_bytes())
+    with pytest.raises(ValueError, match="keys"):
+        load_training_state(tmp_path / "run", "best_model", template,
+                            opt_state_template={"0": {}, "1": {}, "2": {}}, device="cpu")
 
 
 def test_mismatched_checkpoint_raises(saved):

@@ -57,6 +57,14 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/training/training_state.py",
         "neuraloperator_tpu_torch/scripts/eval_ns_checkpoint.py",
         "neuraloperator_tpu_torch/scripts/serve_model.py",
+        "neuraloperator_tpu_torch/config.py",
+        "neuraloperator_tpu_torch/utils.py",
+        "neuraloperator_tpu_torch/training/setup.py",
+        "neuraloperator_tpu_torch/training/staged_step.py",
+        "neuraloperator_tpu_torch/data/datasets/synthetic.py",
+        "neuraloperator_tpu_torch/data/datasets/navier_stokes.py",
+        "neuraloperator_tpu_torch/scripts/generate_ns_data.py",
+        "neuraloperator_tpu_torch/scripts/train_navier_stokes.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -115,9 +123,14 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card):
 
 
 def _new_entry_points():
-    from neuraloperator_tpu_torch.data.datasets import ns_solver
+    from neuraloperator_tpu_torch.data.datasets import navier_stokes, ns_solver
     from neuraloperator_tpu_torch.models import load_flagship
-    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint, serve_model
+    from neuraloperator_tpu_torch.scripts import (
+        eval_ns_checkpoint,
+        generate_ns_data,
+        serve_model,
+        train_navier_stokes,
+    )
     from neuraloperator_tpu_torch.training import load_training_state
 
     flagship = ROOT / "artifacts/ns128_v2"
@@ -130,12 +143,19 @@ def _new_entry_points():
         "evaluate": lambda: eval_ns_checkpoint.evaluate(None, None, zeros, zeros, 1),
         "eval_ns_checkpoint.main": lambda: eval_ns_checkpoint.main(["--save_dir", str(flagship)]),
         "serve_model.main": lambda: serve_model.main(["--ckpt_dir", str(flagship)]),
+        "solve_navier_stokes_2d": lambda: navier_stokes.solve_navier_stokes_2d(zeros),
+        "load_navier_stokes_pt": lambda: navier_stokes.load_navier_stokes_pt(
+            8, [8], 4, [4], data_root="/nonexistent", train_resolution=8),
+        "generate_ns_data.main": lambda: generate_ns_data.main(["--out", "/nonexistent"]),
+        "train_navier_stokes.main": lambda: train_navier_stokes.main(["--opt.n_epochs", "1"]),
     }
 
 
 @pytest.mark.parametrize("name", ["load_flagship", "load_training_state",
                                   "simulate_navier_stokes_2d", "make_nsforcing_split",
-                                  "evaluate", "eval_ns_checkpoint.main", "serve_model.main"])
+                                  "evaluate", "eval_ns_checkpoint.main", "serve_model.main",
+                                  "solve_navier_stokes_2d", "load_navier_stokes_pt",
+                                  "generate_ns_data.main", "train_navier_stokes.main"])
 def test_checkpoint_solver_and_eval_entry_points_refuse_the_cpu_fallback(no_card, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _new_entry_points()[name]()

@@ -269,3 +269,58 @@ def test_evaluation_on_the_card_matches_the_cpu(card):
     assert on_card["pairs"] == on_cpu["pairs"] == 32
     for k in ("rel_l2", "rel_h1"):
         assert abs(on_card[k] - on_cpu[k]) <= 1e-4 * abs(on_cpu[k]), (k, on_card, on_cpu)
+
+
+def test_graphed_staged_epoch_matches_the_eager_loop(card):
+    """``device_dataset`` on the card: one eager warm-up step, then a CUDA
+    graph of the step (gather, forward with K1, backward with K2 and K3,
+    AdamW, the loss sum) replayed; against the loader loop over the same
+    pairs in the staged epoch's order from the same weights. The same
+    kernels run on the same inputs, but the graphed path precomputes the H1
+    denominator and cuBLAS may pick other kernels under capture, so the
+    tolerances of ``tests/test_torch_trainer_recipe.py``: the epoch's loss
+    within 1e-5 relative, all parameters together within relative l2 1e-5,
+    each leaf's change within 1e-4. The launch counts are the card's: one
+    per layer and step, the capture not counted."""
+    from types import SimpleNamespace
+
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.training import Trainer, build_optimizer
+
+    meta = json.loads(METADATA.read_text())
+    meta["init_kwargs"].update(n_modes=[16, 16], hidden_channels=16, n_layers=2)
+    opt = SimpleNamespace(learning_rate=1e-3, weight_decay=1e-4, step_size=50, gamma=0.5,
+                          opt_state="full")
+    gen = np.random.default_rng(4)
+    x = gen.standard_normal((40, 1, 32, 32)).astype(np.float32)
+    y = (0.5 * np.roll(x, 1, axis=-1) + 0.25 * x).astype(np.float32)
+    perm = np.random.default_rng(7).permutation(40)
+    runs = {}
+    for staged in (True, False):
+        model = model_from_metadata(meta, device="cuda",
+                                    generator=torch.Generator().manual_seed(0))
+        init = {k: v.detach().clone() for k, v in model.named_parameters()}
+        order = np.arange(40) if staged else perm
+        loader = DataLoader(TensorDataset(x[order], y[order]), 8)
+        trainer = Trainer(model=model, n_epochs=1, device="cuda")
+        before = tsc.launch_counts()
+        metrics = trainer.train(loader, {}, build_optimizer(opt, 5), training_loss=H1Loss(d=2),
+                                device_dataset=staged, shuffle_seed=7)
+        torch.cuda.synchronize()
+        after = tsc.launch_counts()
+        params = {k: v.detach().double() for k, v in model.named_parameters()}
+        runs[staged] = (metrics["train_err"], params,
+                        {k: after[k] - before[k] for k in after}, trainer)
+    (err_g, got, launches_g, trainer_g), (err_e, want, launches_e, _) = runs[True], runs[False]
+    assert trainer_g.staged_step.graph is not None
+    assert int(trainer_g.optimizer.count) == 5
+    assert launches_g == launches_e == {"mode_contraction": 10, "mode_contraction_dx": 10,
+                                        "mode_contraction_dw": 10}
+    assert abs(err_g - err_e) <= 1e-5 * abs(err_e)
+    flat_got = torch.cat([got[k].ravel() for k in sorted(got)])
+    flat_want = torch.cat([want[k].ravel() for k in sorted(want)])
+    assert float((flat_got - flat_want).norm() / flat_want.norm()) <= 1e-5
+    for name in got:
+        step_got, step_want = got[name] - init[name].double(), want[name] - init[name].double()
+        assert float((step_got - step_want).norm() / step_want.norm()) <= 1e-4, name

@@ -213,3 +213,35 @@ def test_unported_options_raise():
         topt.adamw(1e-3, max_grad_norm=1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         topt.adamw(1e-3, factored_second_moment=True, mu_dtype="int8")
+
+
+@pytest.mark.parametrize("policy", ["full", "factored"])
+def test_device_held_count_rate_and_bias_corrections_match_optax(policy):
+    """The step count, the rate and both bias corrections live in device
+    tensors that the step updates itself (so a captured CUDA graph replays
+    them): over 3 steps across a StepLR boundary (2 steps per epoch) they
+    equal optax's f32 values of the same counts, ``rtol=1e-6``; the state
+    round-trips through optax's tree."""
+    cfg = SimpleNamespace(**_schedule(), opt_state=policy)
+    params = {k: torch.nn.Parameter(torch.from_numpy(v)) for k, v in _draws(0).items()}
+    opt = topt.build_optimizer(cfg, STEPS_PER_EPOCH).bind(list(params.items()))
+    schedule = jopt.step_lr(cfg.learning_rate, cfg.step_size, cfg.gamma, STEPS_PER_EPOCH)
+    assert opt.count.dtype == torch.int32 and opt.count.shape == ()
+    for step in range(3):
+        for k, p in params.items():
+            p.grad = torch.from_numpy(_draws(100 + step, scale=0.1)[k])
+        opt.step()
+        count = jnp.int32(step + 1)
+        assert int(opt.count) == step + 1
+        np.testing.assert_allclose(float(opt.lr), float(schedule(count - 1)), rtol=1e-6)
+        want = [float(jax.jit(lambda c, b=b: 1 - b ** c)(count)) for b in (0.9, 0.999)]
+        np.testing.assert_allclose(opt.bias_correction.numpy(), want, rtol=1e-6)
+    assert float(opt.lr) == np.float32(cfg.learning_rate * 0.5)  # past the boundary
+    tree = opt.state_dict()
+    assert set(tree) == {"0", "1", "2"} and int(tree["2"]["count"]) == 3
+    fresh = topt.build_optimizer(cfg, STEPS_PER_EPOCH).bind(list(params.items()))
+    fresh.load_state_dict(tree)
+    assert int(fresh.count) == 3
+    for p in params.values():
+        for key, value in opt.state[p].items():
+            assert torch.equal(fresh.state[p][key], value), key
