@@ -69,7 +69,27 @@ Phases, each printed with its elapsed seconds as it goes:
    step ms of each, the device's idle share over graphed steps, the seconds
    per save of ``model.msgpack`` and ``optimizer.msgpack``, and the peak
    device memory;
-8. prints one ``{"kernels": [...]}`` line, then, as the last line,
+8. mixed: the JAX benchmark's mixed-precision policy at full width
+   (``bench.py:212-226``; ``scripts/run_round4_post.sh:23-24``): (1) the
+   published weights served through ``CompiledForward(param_dtype=bf16)``
+   on the serve phase's requests (f32 arithmetic over bf16 weights), each
+   answer against the CPU port's under the same policy and against the f32
+   answer, then the same weights in the "mixed" model served on bf16
+   inputs (K1's bf16 variant); (2) those weights in the flagship with
+   ``weight_dtype="bfloat16"`` and ``fno_block_precision="mixed"``
+   evaluated on the 2000 test pairs under the Trainer's half policy
+   (``eval_ns_checkpoint.evaluate(mixed_precision=True)``), checked against
+   bounds set from the JAX package's mixed forward of these weights, and
+   its first 32 pairs against the CPU; (3) ``train_navier_stokes`` with the
+   recipe phase's flags plus the three mixed flags, warm-started from the
+   published weights: 2 epochs of 50 graphed steps, an evaluation at the
+   end, ``model.msgpack`` reloaded through ``models.from_checkpoint`` and
+   rescored; K1, K2 and K3 launched in bf16 only; the graphed mixed step's
+   ms beside the recipe's f32 one, the idle share over 20 replays, a
+   profile of two replays and the peak memory; (4) one mixed step of
+   batch 2, card against CPU, from the published weights and from seeded
+   ones;
+9. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -192,6 +212,46 @@ BEST_RELOAD_TOL = 1e-5
 # some 40-fold; the published weights are all nonzero
 GRAPH_TOL = 1e-5
 GRAPH_EPOCHS, GRAPH_SEED, GRAPH_PROFILE_STEPS = 2, 11, 20
+
+# the mixed phase: the JAX package's mixed-precision run
+# (scripts/run_round4_post.sh:23-24) on the flagship
+MIXED_MODEL = {"weight_dtype": "bfloat16", "fno_block_precision": "mixed"}
+MIXED_FLAGS = {"--model.weight_dtype": "bfloat16", "--model.fno_block_precision": "mixed",
+               "--opt.mixed_precision": "true"}
+MIXED_EPOCHS = 2
+# Bounds from the JAX package's own mixed forward of the published weights
+# (a CPU probe on two 128² unit-variance Gaussian random fields): bf16
+# weights with f32 arithmetic sit 2.5e-3 (l2) from the f32 forward, the
+# "mixed" policy 6.0e-3 (l2) and 5.4e-2 (H1; bf16 rounding noise is high
+# frequency). So: a served answer over bf16 weights within 1e-2 of the f32
+# answer, the mixed served answer within 2e-2; the mixed evaluation at
+# rel_l2 <= 2e-2 and rel_h1 <= 1.5e-1 (the f16 weights score 3.3e-4 / 3.5e-4
+# in f32; wrong weights or normalizers score about 1).
+MIXED_SERVE_F32_TOL, MIXED_POLICY_F32_TOL = 1e-2, 2e-2
+# the serve phase's white-noise requests: on an H100 bf16 weights read
+# 1.9e-2 from the f32 answers there (2.4e-3 on the test inputs; the card and
+# the CPU agree to 9e-7, and the CPU tests hold this path to JAX at 1e-5),
+# the mixed policy 3.3e-2 (5.8e-3), and the card's mixed answers 2.3e-2 from
+# the CPU's: a bound that only wrong weights or casts (about 1) cross
+NOISE_F32_TOL = 1e-1
+MIXED_L2_BOUND, MIXED_H1_BOUND = 2e-2, 1.5e-1
+# card against CPU under the same bf16 policy: the two pipelines round the
+# same operands at the same points and differ in the order of f32 sums
+# alone, which flips a bf16 rounding now and then. A served answer within
+# 2e-2 (the distance of two rounding orders of one JAX forward, jitted and
+# eager, on the CPU: 1e-2); the 32 pairs' figures within 10% of each other;
+# one step: the loss within 1e-2 relative, the gradients within 5e-2
+# relative l2 (each leaf against the larger of its norm and 1% of the whole
+# gradient's: the biases' gradients are sums that cancel)
+MIXED_SERVE_CPU_TOL, MIXED_EVAL_CPU_TOL = 2e-2, 0.1
+MIXED_STEP_LOSS_TOL, MIXED_STEP_GRAD_TOL = 1e-2, 5e-2
+# ... except at the published weights, where the loss is bf16 noise and the
+# gradients of two pipelines read 8.2e-2 apart on an H100 (all together; up
+# to 0.28 per leaf): a bound that only a step on other weights or data
+# (about 1) crosses
+MIXED_STEP_NOISE_GRAD_TOL = 0.25
+# the saved mixed weights rebuilt and rescored: the same bf16 forwards
+MIXED_RELOAD_TOL = 1e-6
 
 _T0 = time.perf_counter()
 
@@ -332,12 +392,30 @@ def check_kernel(name: str, batch: int, dtype: torch.dtype, channels=None, modes
 
 
 def reset_launches() -> None:
-    for spec in kernel_specs().values():
-        spec["fn"].launches = 0
+    from neuraloperator_tpu_torch.ops import spectral_contraction as tsc
+
+    tsc.reset_launch_counts()
 
 
 def read_launches() -> dict:
-    return {name: spec["fn"].launches for name, spec in kernel_specs().items()}
+    from neuraloperator_tpu_torch.ops import spectral_contraction as tsc
+
+    return tsc.launch_counts()
+
+
+def read_launches_by_dtype() -> dict:
+    from neuraloperator_tpu_torch.ops import spectral_contraction as tsc
+
+    return tsc.launch_counts(by_dtype=True)
+
+
+def only_dtype(by_dtype: dict, dtype: str) -> None:
+    """Raise unless every launch counted in ``by_dtype`` ran the ``dtype`` variant."""
+    other = {name: {d: n for d, n in counts.items() if d != dtype and n}
+             for name, counts in by_dtype.items()}
+    other = {name: c for name, c in other.items() if c}
+    if other:
+        raise AssertionError(f"launches of other variants than {dtype}: {other}")
 
 
 def flagship_meta() -> dict:
@@ -394,7 +472,8 @@ def serve(model, processor, cpu_model) -> dict:
         answers.append(served(x))
         torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    only_dtype(by_dtype, "float32")
     for x, y in zip(requests, answers):
         if tuple(y.shape) != tuple(x.shape):
             raise AssertionError(f"answer of shape {tuple(y.shape)} to a {tuple(x.shape)} request")
@@ -424,8 +503,9 @@ def serve(model, processor, cpu_model) -> dict:
     latency_ms = {b: 1e3 * served.latency_probe(batch_size=b, iters=20) for b in BUCKETS}
     log(f"serve: latency_probe ms per forward {latency_ms}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    return {"launches": launches, "latency_ms": latency_ms, "rel_l2_vs_cpu": err,
-            "requests": list(REQUESTS), "serve_s": serve_s}
+    return {"launches": launches, "launches_by_dtype": by_dtype, "latency_ms": latency_ms,
+            "rel_l2_vs_cpu": err, "requests": list(REQUESTS), "serve_s": serve_s,
+            "_requests": requests, "_answers": [a.cpu() for a in answers]}
 
 
 def rel_l2_np(a, b) -> float:
@@ -450,7 +530,8 @@ def evaluate_flagship(model, processor, cpu_model) -> dict:
     figures = ev.evaluate(model, processor, xs, ys, EVAL_BATCH, device="cuda")
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    only_dtype(by_dtype, "float32")
     log(f"eval: {figures['pairs']} pairs at batch {EVAL_BATCH} in {eval_s:.3f} s: "
         f"rel_l2 {figures['rel_l2']:.6e}, rel_h1 {figures['rel_h1']:.6e}; kernel launches "
         f"{launches}")
@@ -501,7 +582,7 @@ def evaluate_flagship(model, processor, cpu_model) -> dict:
         f"{SOLVER_PROFILE_STEPS} solver steps of {ev.TEST_TRAJECTORIES} x {EVAL_RES}²",
         lambda: ns_solver.simulate_navier_stokes_2d(w0_all, device="cuda", **window),
     )
-    return {"launches": launches, **figures, "eval_s": eval_s,
+    return {"launches": launches, "launches_by_dtype": by_dtype, **figures, "eval_s": eval_s,
             "solver_rel_l2_vs_cpu": solver_err, "eval_rel_diff_vs_cpu": eval_err,
             "solver_profile": profile}
 
@@ -564,7 +645,8 @@ def train() -> dict:
                             eval_losses={"h1": h1, "l2": l2})
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    only_dtype(by_dtype, "float32")
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     log(f"train: {EPOCHS} epochs of {TRAIN_BATCHES} steps of batch {TRAIN_BATCH} in "
         f"{train_s:.2f} s; metrics {metrics}; kernel launches {launches}; peak device "
@@ -587,23 +669,26 @@ def train() -> dict:
 
     step = compare_step_with_cpu(model, meta, processor, x[n_train:n_train + 2],
                                  y[n_train:n_train + 2])
-    out = {"launches": launches, "metrics": metrics, "train_s": train_s,
+    out = {"launches": launches, "launches_by_dtype": by_dtype, "metrics": metrics,
+           "train_s": train_s,
            "step_ms": step_ms, "steps_per_s": 1e3 / step_ms, "peak_mib": peak_mib,
            "steps": steps, "eval_forwards": eval_forwards, **step}
     out["profile"] = profile_steps(model, processor, x[:2 * TRAIN_BATCH], y[:2 * TRAIN_BATCH])
     return out
 
 
-def one_step(model, processor, x, y, device):
+def one_step(model, processor, x, y, device, mixed_precision: bool = False):
     """One Trainer.train step of the given batch; returns (loss, grads)."""
     from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
     from neuraloperator_tpu_torch.losses import H1Loss
     from neuraloperator_tpu_torch.training import Trainer, build_optimizer
 
     loader = DataLoader(TensorDataset(x, y), len(x))
-    trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device=device)
+    trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device=device,
+                      mixed_precision=mixed_precision)
     metrics = trainer.train(loader, {}, build_optimizer(OPT, 1), training_loss=H1Loss(d=2))
-    return metrics["train_err"], {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return metrics["train_err"], {n: p.grad.detach().float().cpu()
+                                  for n, p in model.named_parameters()}
 
 
 def compare_step_with_cpu(model, meta, processor, x, y) -> dict:
@@ -793,7 +878,8 @@ def recipe() -> dict:
              str(save_dir), "--resume_from_dir", str(save_dir)], resumed_evals)
         resume_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches, by_dtype = read_launches(), read_launches_by_dtype()
+        only_dtype(by_dtype, "float32")
         trainer = resumed_evals[-1][0]
         manifest_after = read_manifest(save_dir)
         log(f"recipe: resumed run to epoch {RECIPE_RESUMED_EPOCHS} in {resume_s:.1f} s; "
@@ -833,10 +919,13 @@ def recipe() -> dict:
         if launches != expected:
             raise AssertionError(f"(5) the recipe launched {launches}, expected {expected}")
         del best, trainer, evals, resumed_evals
+        log(f"recipe: peak device memory of the fine-tune and the resumed run "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
         graph = graphed_against_eager()
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
         log(f"recipe: peak device memory {peak_mib:.0f} MiB")
-        return {"launches": launches, "fine_tune": fine_tune, "fine_tune_final": final,
+        return {"launches": launches, "launches_by_dtype": by_dtype, "fine_tune": fine_tune,
+                "fine_tune_final": final,
                 "resumed_final": resumed_final, "manifest": manifest_after,
                 "fine_tune_s": fine_tune_s, "resume_s": resume_s,
                 "graphed_step_ms_fine_tune": 1e3 * final["epoch_time"] / steps_per_epoch,
@@ -922,9 +1011,317 @@ def graphed_against_eager() -> dict:
             "step_ms": step_ms, "graphed_profile": profile, "save_s": save_s}
 
 
+def mixed_flagship_on(device: str):
+    """The published weights in the flagship with bf16 spectral weights and
+    "mixed" blocks (``MIXED_MODEL``), in eval mode on ``device``."""
+    from neuraloperator_tpu_torch.models import model_from_metadata
+    from neuraloperator_tpu_torch.training.training_state import load_training_state
+
+    meta = flagship_meta()
+    meta["init_kwargs"].update(MIXED_MODEL)
+    model = model_from_metadata(meta, device="meta").to_empty(device=device)
+    model.load_state_dict(load_training_state(FLAGSHIP, CHECKPOINT, model.state_dict(),
+                                              device=device)[0])
+    return model.eval(), meta
+
+
+def rel_l2_t(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def mixed_serve(processor, served: dict) -> dict:
+    """(1) bf16 weights on f32 requests, then the mixed model on bf16 inputs.
+
+    The serve phase's requests (white noise at the input's scale) are
+    answered and counted; then the first 24 inputs of the test split
+    (Gaussian random vorticity, the inputs of the JAX package's probe that
+    the bounds come from). Both sets are held to the CPU's answers under the
+    same policy and to the f32 answers. White noise carries high
+    frequencies that these weights barely pass, so its answers are small
+    and bf16 noise is large beside them: on it the bf16 pipelines are held
+    only to NOISE_F32_TOL."""
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+    from neuraloperator_tpu_torch.serving import CompiledForward
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    requests, f32_answers = served["_requests"], served["_answers"]
+    xs, _ = ev.load_test_split(EVAL_RES, sum(REQUESTS), device="cuda")
+    bounds = np.cumsum((0, *REQUESTS))
+    fields = [torch.from_numpy(xs[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+    pre, post = processor.in_normalizer.transform, processor.out_normalizer.inverse_transform
+    example = torch.zeros(1, 1, 128, 128)
+    out = {}
+    # (a) the published weights cast to bf16, f32 arithmetic: K1's f32 variant
+    model, _ = load_flagship_on("cuda")
+    cpu_model, _ = load_flagship_on("cpu")
+    f32_srv = CompiledForward(model, example, batch_sizes=BUCKETS, device="cuda",
+                              preprocess_fn=pre, postprocess_fn=post)
+    f32_fields = [f32_srv(x) for x in fields]
+    # (b) the same weights in the mixed model, inputs cast to bf16 after the
+    # normalizer and the output taken in f32 before it (the half policy): bf16 K1
+    mixed_model, _ = mixed_flagship_on("cuda")
+    mixed_cpu, _ = mixed_flagship_on("cpu")
+    cases = {
+        "bf16_weights": (model, cpu_model, dict(preprocess_fn=pre, postprocess_fn=post),
+                         "float32", MIXED_SERVE_F32_TOL),
+        "mixed_policy": (mixed_model, mixed_cpu,
+                         dict(preprocess_fn=lambda x: pre(x).to(torch.bfloat16),
+                              postprocess_fn=lambda y: post(y.float())),
+                         "bfloat16", MIXED_POLICY_F32_TOL),
+    }
+    for case, (card_model, host_model, fns, variant, f32_tol) in cases.items():
+        srv = CompiledForward(card_model, example, batch_sizes=BUCKETS, device="cuda",
+                              param_dtype=torch.bfloat16, **fns)
+        reset_launches()
+        answers = []
+        for x in requests:
+            answers.append(srv(x))
+            torch.cuda.synchronize()
+        launches, by_dtype = read_launches(), read_launches_by_dtype()
+        only_dtype(by_dtype, variant)
+        expected = {"mode_contraction": n_layers * len(REQUESTS),
+                    "mode_contraction_dx": 0, "mode_contraction_dw": 0}
+        if launches != expected:
+            raise AssertionError(f"mixed serve {case} launched {launches}, expected {expected}")
+        host = CompiledForward(host_model, example, batch_sizes=(max(REQUESTS),), device="cpu",
+                               param_dtype=torch.bfloat16, **fns)
+        on_fields = [srv(x) for x in fields]
+        # each set of answers against the CPU's and against the f32 answers
+        vs_cpu = [rel_l2_t(a, host(x)) for x, a in zip(fields, on_fields)]
+        noise_vs_cpu = [rel_l2_t(a, host(x)) for x, a in zip(requests, answers)]
+        vs_f32 = [rel_l2_t(a, f) for a, f in zip(on_fields, f32_fields)]
+        noise_vs_f32 = [rel_l2_t(a, f) for a, f in zip(answers, f32_answers)]
+        # f32 arithmetic over the same bf16 weights: the serve phase's bound on
+        # every request; two bf16 pipelines: MIXED_SERVE_CPU_TOL on the test
+        # inputs and NOISE_F32_TOL on white noise
+        cpu_tol, noise_cpu_tol = ((SERVE_TOL, SERVE_TOL) if case == "bf16_weights"
+                                  else (MIXED_SERVE_CPU_TOL, NOISE_F32_TOL))
+        finite = all(bool(torch.isfinite(a).all()) for a in answers + on_fields)
+        latency_ms = {b: 1e3 * srv.latency_probe(batch_size=b, iters=20) for b in BUCKETS}
+        log(f"mixed serve ({case}): {len(REQUESTS)} requests, launches {by_dtype}; rel_l2 "
+            f"max on the test inputs: vs the CPU under the same policy {max(vs_cpu):.3e} (tol "
+            f"{cpu_tol:.0e}), vs the f32 answers {max(vs_f32):.3e} (tol {f32_tol:.0e}); on the "
+            f"white-noise requests: vs the CPU {max(noise_vs_cpu):.3e} (tol "
+            f"{noise_cpu_tol:.0e}), vs f32 {max(noise_vs_f32):.3e} (tol {NOISE_F32_TOL:.0e}); "
+            f"latency_probe ms {latency_ms}")
+        if not finite:
+            raise AssertionError(f"mixed serve {case}: non-finite answers")
+        if not (max(vs_cpu) <= cpu_tol and max(noise_vs_cpu) <= noise_cpu_tol):
+            raise AssertionError(f"mixed serve {case}: card and CPU differ: {vs_cpu}, "
+                                 f"{noise_vs_cpu}")
+        if not (max(vs_f32) <= f32_tol and max(noise_vs_f32) <= NOISE_F32_TOL):
+            raise AssertionError(f"mixed serve {case}: far from the f32 answers: {vs_f32}, "
+                                 f"{noise_vs_f32}")
+        out[case] = {"launches": launches, "launches_by_dtype": by_dtype,
+                     "rel_l2_vs_cpu": vs_cpu, "rel_l2_vs_f32": vs_f32,
+                     "white_noise_rel_l2_vs_cpu": noise_vs_cpu,
+                     "white_noise_rel_l2_vs_f32": noise_vs_f32, "latency_ms": latency_ms}
+    return out
+
+
+def mixed_eval(processor, f32_figures: dict) -> dict:
+    """(2) the published weights in the mixed flagship on the 2000 test pairs."""
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    model, _ = mixed_flagship_on("cuda")
+    xs, ys = ev.load_test_split(EVAL_RES, EVAL_PAIRS, device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    figures = ev.evaluate(model, processor, xs, ys, EVAL_BATCH, device="cuda",
+                          mixed_precision=True)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    log(f"mixed eval: {figures['pairs']} pairs at batch {EVAL_BATCH} in {eval_s:.3f} s: "
+        f"rel_l2 {figures['rel_l2']:.6e} (bound {MIXED_L2_BOUND:.0e}), rel_h1 "
+        f"{figures['rel_h1']:.6e} (bound {MIXED_H1_BOUND:.1e}); f32 {f32_figures}; "
+        f"launches {by_dtype}")
+    only_dtype(by_dtype, "bfloat16")
+    expected = {"mode_contraction": n_layers * (EVAL_PAIRS // EVAL_BATCH),
+                "mode_contraction_dx": 0, "mode_contraction_dw": 0}
+    if launches != expected:
+        raise AssertionError(f"the mixed evaluation launched {launches}, expected {expected}")
+    if not (figures["rel_l2"] <= MIXED_L2_BOUND and figures["rel_h1"] <= MIXED_H1_BOUND):
+        raise AssertionError(f"the mixed evaluation scores {figures}")
+    head = slice(0, EVAL_CPU_PAIRS)
+    t0 = time.perf_counter()
+    on_card = ev.evaluate(model, processor, xs[head], ys[head], EVAL_BATCH, device="cuda",
+                          mixed_precision=True)
+    cpu_model, _ = mixed_flagship_on("cpu")
+    on_cpu = ev.evaluate(cpu_model, processor, xs[head], ys[head], EVAL_BATCH, device="cpu",
+                         mixed_precision=True)
+    diff = {k: abs(on_card[k] - on_cpu[k]) / abs(on_cpu[k]) for k in ("rel_l2", "rel_h1")}
+    log(f"mixed eval: first {EVAL_CPU_PAIRS} pairs, card {on_card} vs CPU {on_cpu} in "
+        f"{time.perf_counter() - t0:.1f} s: relative differences {diff} "
+        f"(tol {MIXED_EVAL_CPU_TOL})")
+    if not max(diff.values()) <= MIXED_EVAL_CPU_TOL:
+        raise AssertionError(f"the mixed evaluation on the card departs from the CPU: {diff}")
+    return {"launches": launches, "launches_by_dtype": by_dtype, **figures, "eval_s": eval_s,
+            "eval_rel_diff_vs_cpu": diff}
+
+
+def mixed_train(f32_step_ms: float) -> dict:
+    """(3) the mixed recipe through train_navier_stokes, the saved weights
+    reloaded, the graphed step's time, idle share and peak memory."""
+    from neuraloperator_tpu_torch.models import from_checkpoint
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+    from neuraloperator_tpu_torch.serialization import read_msgpack
+    from neuraloperator_tpu_torch.data.transforms import load_data_processor
+    from neuraloperator_tpu_torch.training.training_state import load_training_state
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    steps_per_epoch = RECIPE_PAIRS // TRAIN_BATCH
+    # the recipe's flags with the mixed policy on, and one evaluation, at the end
+    flags = list(RECIPE_FLAGS)
+    for flag, value in {**MIXED_FLAGS, "--eval_interval": "25"}.items():
+        if flag in flags:
+            flags[flags.index(flag) + 1] = value
+        else:
+            flags += [flag, value]
+    save_dir = Path(tempfile.mkdtemp(prefix="mixed-"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        evals: list = []
+        t0 = time.perf_counter()
+        final = run_recipe_entry_point(
+            [*flags, "--opt.n_epochs", str(MIXED_EPOCHS), "--save_dir", str(save_dir),
+             "--warm_start_from", str(FLAGSHIP), "--warm_start_name", CHECKPOINT], evals)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches, by_dtype = read_launches(), read_launches_by_dtype()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        trainer = evals[-1][0]
+        step_ms = 1e3 * final["epoch_time"] / steps_per_epoch
+        log(f"mixed train: {MIXED_EPOCHS} epochs x {steps_per_epoch} graphed steps in "
+            f"{train_s:.1f} s; final {final}; launches {by_dtype}; graphed mixed step "
+            f"{step_ms:.2f} ms vs the recipe's f32 {f32_step_ms:.2f} ms; peak device memory "
+            f"{peak_mib:.0f} MiB")
+        bad = {k: v for k, v in final.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"non-finite mixed training metrics {bad}")
+        if not (final["128_l2"] <= MIXED_L2_BOUND and final["128_h1"] <= MIXED_H1_BOUND):
+            raise AssertionError(f"the mixed run's evaluation scores {final}")
+        only_dtype(by_dtype, "bfloat16")
+        steps = MIXED_EPOCHS * steps_per_epoch
+        expected = {"mode_contraction": n_layers * (steps + len(evals) * (EVAL_PAIRS // EVAL_BATCH)),
+                    "mode_contraction_dx": n_layers * steps,
+                    "mode_contraction_dw": n_layers * steps}
+        if launches != expected or trainer.staged_step.graph is None:
+            raise AssertionError(f"the mixed run launched {launches}, expected {expected}")
+        saved = read_msgpack(save_dir / "model.msgpack")
+        w_dtype = saved["fno_blocks"]["conv_0"]["w_weight"].dtype
+        if w_dtype != torch.bfloat16:
+            raise AssertionError(f"model.msgpack holds {w_dtype} spectral weights")
+        rebuilt = from_checkpoint(save_dir, "model", device="cuda")
+        rebuilt.load_state_dict(load_training_state(save_dir, "model", rebuilt.state_dict(),
+                                                    device="cuda")[0])
+        xs, ys = ev.load_test_split(EVAL_RES, EVAL_PAIRS, device="cuda")
+        rescored = ev.evaluate(rebuilt.eval(), load_data_processor(save_dir), xs, ys, EVAL_BATCH,
+                               device="cuda", mixed_precision=True)
+        reload_err = abs(rescored["rel_l2"] - final["128_l2"]) / final["128_l2"]
+        log(f"mixed train: model.msgpack holds bf16 spectral weights; rebuilt by "
+            f"from_checkpoint it scores {rescored} against the run's 128_l2 "
+            f"{final['128_l2']:.6e}: relative difference {reload_err:.2e} "
+            f"(tol {MIXED_RELOAD_TOL:.0e})")
+        if not reload_err <= MIXED_RELOAD_TOL:
+            raise AssertionError(f"the reloaded mixed weights score {rescored}")
+        del rebuilt
+        staged = trainer.staged_step
+        order = torch.from_numpy(np.random.default_rng(GRAPH_SEED).permutation(RECIPE_PAIRS)[
+            :GRAPH_PROFILE_STEPS * TRAIN_BATCH].reshape(GRAPH_PROFILE_STEPS, TRAIN_BATCH)
+        ).to(staged.index.device)
+
+        def replays(n):
+            for i in range(n):
+                staged(order[i])
+
+        replays(GRAPH_PROFILE_STEPS)  # warm
+        idle = profile_window(f"{GRAPH_PROFILE_STEPS} graphed mixed train steps of batch "
+                              f"{TRAIN_BATCH}", lambda: replays(GRAPH_PROFILE_STEPS))
+        two = profile_window(f"2 graphed mixed train steps of batch {TRAIN_BATCH}",
+                             lambda: replays(2))
+        return {"launches": launches, "launches_by_dtype": by_dtype, "final": final,
+                "train_s": train_s, "graphed_step_ms": step_ms, "f32_graphed_step_ms": f32_step_ms,
+                "peak_mib": peak_mib, "reload_rel_diff": reload_err,
+                "graphed_profile": idle, "two_replays_profile": two}
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+
+def mixed_step(processor) -> dict:
+    """(4) one mixed train step of batch 2, card against CPU: from the
+    published weights on two test pairs, and from seeded weights on two
+    synthetic pairs.
+
+    At the published weights the H1 loss is the bf16 rounding noise itself
+    (rel_h1 6e-2 against the f32 forward's 3.5e-4), and any two bf16
+    pipelines decorrelate at their first rounding flip (on the CPU, one bf16
+    ulp on 1% of the inputs moves such a gradient by 53%), so there only the
+    loss is held to MIXED_STEP_LOSS_TOL and the gradients to
+    MIXED_STEP_NOISE_GRAD_TOL; seeded weights give a gradient the data
+    drives, held to MIXED_STEP_GRAD_TOL."""
+    from neuraloperator_tpu_torch.models import model_from_metadata
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+
+    xs, ys = ev.load_test_split(EVAL_RES, 2, device="cuda")
+    model, meta = mixed_flagship_on("cuda")
+    seeded = model_from_metadata(meta, device="cuda",
+                                 generator=torch.Generator().manual_seed(SEED + 2))
+    in_std = float(processor.in_normalizer.std.ravel()[0])
+    cases = {"published": (model, mixed_flagship_on("cpu")[0], xs, ys, MIXED_STEP_NOISE_GRAD_TOL),
+             "seeded": (seeded, cpu_copy(seeded, meta), *make_pairs(2, in_std, SEED + 3),
+                        MIXED_STEP_GRAD_TOL)}
+    out = {}
+    for case, (card_model, host_model, x, y, grad_tol) in cases.items():
+        t0 = time.perf_counter()
+        loss_gpu, grads_gpu = one_step(card_model, processor, x, y, "cuda", mixed_precision=True)
+        loss_cpu, grads_cpu = one_step(host_model, processor, x, y, "cpu", mixed_precision=True)
+        loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        names = sorted(grads_cpu)
+        floor = 1e-2 * float(torch.cat([grads_cpu[n].double().ravel() for n in names]).norm())
+        grad_err = {n: float((grads_gpu[n].double() - grads_cpu[n].double()).norm()
+                             / max(float(grads_cpu[n].double().norm()), floor)) for n in names}
+        total = rel_l2_t(torch.cat([grads_gpu[n].ravel() for n in names]),
+                         torch.cat([grads_cpu[n].ravel() for n in names]))
+        worst = max(grad_err, key=grad_err.get)
+        log(f"mixed step ({case}): batch 2, card vs CPU in {time.perf_counter() - t0:.1f} s: "
+            f"loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel {loss_err:.2e}, tol "
+            f"{MIXED_STEP_LOSS_TOL:.0e}); gradients rel_l2 all {total:.2e}, per leaf max "
+            f"{grad_err[worst]:.2e} ({worst}) (tol {grad_tol:g})")
+        if not loss_err <= MIXED_STEP_LOSS_TOL:
+            raise AssertionError(f"mixed step ({case}): card and CPU losses differ: {loss_err}")
+        misses = {k: v for k, v in grad_err.items() if not v <= grad_tol}
+        if case == "published":
+            misses = {} if total <= grad_tol else misses
+        if misses or not total <= grad_tol:
+            raise AssertionError(f"mixed step ({case}): card and CPU gradients differ: "
+                                 f"{total}, {misses}")
+        out[case] = {"loss_rel_err": loss_err, "grad_rel_l2": total,
+                     "grad_leaf_max": grad_err[worst], "grad_worst": worst}
+    return out
+
+
+def mixed(processor, served: dict, evaluated: dict, recipe_run: dict) -> dict:
+    """The mixed phase; its launches summed over its four parts."""
+    parts = {"serve": mixed_serve(processor, served),
+             "eval": mixed_eval(processor, {k: evaluated[k] for k in ("rel_l2", "rel_h1")}),
+             "train": mixed_train(recipe_run["step_ms"]["graphed"])}
+    parts["step"] = mixed_step(processor)
+    counted = [*parts["serve"].values(), parts["eval"], parts["train"]]
+    by_dtype = {name: {dt: sum(p["launches_by_dtype"][name][dt] for p in counted)
+                       for dt in ("float32", "bfloat16")} for name in kernel_specs()}
+    return {"launches": {name: sum(c.values()) for name, c in by_dtype.items()},
+            "launches_by_dtype": by_dtype, **parts}
+
+
 def kernel_line(variants, paths) -> list:
     """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
-    with its launches summed over the paths and by path."""
+    with its launches summed over the paths, by path, by dtype, and by path
+    and dtype."""
     kernels = []
     for name, spec in kernel_specs().items():
         own = [v for v in variants if v["name"] == name]
@@ -936,6 +1333,11 @@ def kernel_line(variants, paths) -> list:
             "replaces": f"{PALLAS}:140 (_mode_contraction, dn={spec['dn']}, :{spec['line']})",
             "launches": sum(p["launches"][name] for p in paths.values()),
             "launches_by_path": {path: p["launches"][name] for path, p in paths.items()},
+            "launches_by_dtype": {dt: sum(p["launches_by_dtype"][name][dt]
+                                          for p in paths.values())
+                                  for dt in ("float32", "bfloat16")},
+            "launches_by_path_and_dtype": {path: p["launches_by_dtype"][name]
+                                           for path, p in paths.items()},
             "max_abs_err": main["max_abs_err"],
             "rel_l2": main["rel_l2"],
             "ms": main["ms"],
@@ -992,9 +1394,10 @@ def main() -> None:
     del model, cpu_model
     trained = train()
     recipe_run = recipe()
+    mixed_run = mixed(processor, served, evaluated, recipe_run)
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
-                                     "recipe": recipe_run})
+                                     "recipe": recipe_run, "mixed": mixed_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
@@ -1002,7 +1405,10 @@ def main() -> None:
         f"{splits['solver_s']:.1f} s, eval {evaluated['eval_s']:.2f} s); "
         f"train step {trained['step_ms']:.2f} ms, peak {trained['peak_mib']:.0f} MiB; recipe "
         f"step ms {recipe_run['step_ms']}, saves {recipe_run['save_s']}, peak "
-        f"{recipe_run['peak_mib']:.0f} MiB")
+        f"{recipe_run['peak_mib']:.0f} MiB; mixed: eval rel_l2 {mixed_run['eval']['rel_l2']:.6e} "
+        f"rel_h1 {mixed_run['eval']['rel_h1']:.6e}, graphed step "
+        f"{mixed_run['train']['graphed_step_ms']:.2f} ms, peak "
+        f"{mixed_run['train']['peak_mib']:.0f} MiB")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -16,13 +16,14 @@ from .._common import resolve_device
 _TRUNC_STD = 0.87962566103423978
 
 
-def _draw(shape, device, fill) -> torch.nn.Parameter:
+def _draw(shape, device, fill, dtype: torch.dtype = torch.float32) -> torch.nn.Parameter:
+    """Drawn in float32, then stored as ``dtype``."""
     device = resolve_device(device)
     if device.type == "meta":
-        return torch.nn.Parameter(torch.empty(shape, device="meta"))
+        return torch.nn.Parameter(torch.empty(shape, device="meta", dtype=dtype))
     t = torch.empty(shape)
     fill(t)
-    return torch.nn.Parameter(t.to(device))
+    return torch.nn.Parameter(t.to(device=device, dtype=dtype))
 
 
 def lecun_normal(shape: Sequence[int], device, generator: Optional[torch.Generator]):
@@ -44,11 +45,11 @@ def lecun_normal(shape: Sequence[int], device, generator: Optional[torch.Generat
 
 
 def normal(shape: Sequence[int], std: float, device,
-           generator: Optional[torch.Generator]):
-    """``std * N(0, 1)``."""
+           generator: Optional[torch.Generator], dtype: torch.dtype = torch.float32):
+    """``std * N(0, 1)``, drawn in float32 and stored as ``dtype``."""
     return _draw(
         tuple(shape), device,
-        lambda t: t.normal_(0.0, std, generator=generator),
+        lambda t: t.normal_(0.0, std, generator=generator), dtype,
     )
 
 

@@ -37,7 +37,8 @@ class SoftGating(nn.Module):
 
 
 class Flattened1dConv(nn.Module):
-    """Pointwise channel projection over the flattened spatial dims."""
+    """Pointwise channel projection over the flattened spatial dims, in the
+    promoted dtype of the input and the weight (as the JAX einsum)."""
 
     def __init__(
         self,
@@ -55,7 +56,8 @@ class Flattened1dConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, *spatial = x.shape
-        y = torch.matmul(self.weight, x.reshape(b, c, -1))
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        y = torch.matmul(self.weight.to(dtype), x.reshape(b, c, -1).to(dtype))
         if self.bias is not None:
             y = y + self.bias[:, None]
         return y.reshape(b, self.out_channels, *spatial)

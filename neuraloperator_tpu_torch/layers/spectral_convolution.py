@@ -1,7 +1,8 @@
 """Spectral convolution (port of ``neuraloperator_tpu/layers/spectral_convolution.py``).
 
-Ported branch: real data, dense weights, ``fno_block_precision="full"``,
-Hermitian symmetry enforced, every axis at most 512 points. The forward is
+Ported branch: real data, dense weights, Hermitian symmetry enforced, every
+axis at most 512 points, ``fno_block_precision`` "full", "half" or "mixed",
+``weight_dtype`` "float32" or "bfloat16". The forward is
 
 1. ``rdft_gather_last`` along the last axis, then ``dft_gather_axis`` on
    each earlier axis (truncated DFT matmuls);
@@ -12,8 +13,17 @@ Hermitian symmetry enforced, every axis at most 512 points. The forward is
    enforcement);
 4. the bias.
 
+"full" computes in float32 whatever the input's dtype. "half" and "mixed"
+round where the JAX function rounds: "half" first rounds x through
+bfloat16; both run the forward DFTs on bfloat16 x, contract bfloat16
+operands with float32 sums (the kernels' bf16 variants), round the
+contraction's output to bfloat16 for the inverse DFTs, and return bfloat16
+(the last inverse sums in float32, then rounds), the bias added in it.
+
 Weights keep the JAX storage layout: ``w_weight`` is ``(2, in, out, m1..mN)``
-(real and imaginary parts stacked), ``bias`` is ``(out, 1, .., 1)``.
+(real and imaginary parts stacked), stored as ``weight_dtype`` and read as
+float32; ``bias`` is ``(out, 1, .., 1)``, float32, cast to the output's
+dtype where it is added.
 """
 
 from typing import List, Optional, Sequence, Tuple, Union
@@ -46,13 +56,8 @@ def halve_last_mode(n_modes: Sequence[int], complex_data: bool) -> List[int]:
     return n_modes
 
 
-def _use_full_f32_matmuls() -> None:
-    # The "full" path must match the JAX package's f32-accurate matmuls
-    # (Precision.HIGH). TF32 keeps ~3 decimal digits, so it is switched off
-    # explicitly for both cuBLAS matmuls and cuDNN, whatever else in the
-    # process may have turned it on.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+PRECISIONS = ("full", "half", "mixed")
+WEIGHT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class SpectralConv(nn.Module):
@@ -91,14 +96,13 @@ class SpectralConv(nn.Module):
             raise not_ported(
                 f"SpectralConv factorization={factorization!r}", "the other families"
             )
-        if fno_block_precision != "full":
-            raise not_ported(
-                f"SpectralConv fno_block_precision={fno_block_precision!r}",
-                "mixed/half precision",
+        if fno_block_precision not in PRECISIONS:
+            raise ValueError(
+                f"fno_block_precision must be one of {PRECISIONS}, got {fno_block_precision!r}"
             )
-        if weight_dtype != "float32":
-            raise not_ported(
-                f"SpectralConv weight_dtype={weight_dtype!r}", "mixed/half precision"
+        if weight_dtype not in WEIGHT_DTYPES:
+            raise ValueError(
+                f"weight_dtype must be 'float32' or 'bfloat16', got {weight_dtype!r}"
             )
         if resolution_scaling_factor is not None:
             raise not_ported("SpectralConv resolution_scaling_factor", "the other families")
@@ -112,6 +116,7 @@ class SpectralConv(nn.Module):
             [n_modes] if isinstance(n_modes, int) else [int(m) for m in n_modes]
         )
         self.fft_norm = fft_norm
+        self.fno_block_precision = fno_block_precision
         halved = halve_last_mode(self.n_modes, complex_data=False)
         if max_n_modes is None:
             self.max_n_modes = halved
@@ -128,7 +133,8 @@ class SpectralConv(nn.Module):
         shape = (2, in_channels, out_channels, *self.max_n_modes)
         # dense init of the JAX package (tensor/factorized.py:init_factors):
         # real and imaginary parts each N(0, (std / sqrt 2)^2)
-        self.w_weight = _init.normal(shape, std / 2 ** 0.5, device, generator)
+        self.w_weight = _init.normal(shape, std / 2 ** 0.5, device, generator,
+                                     WEIGHT_DTYPES[weight_dtype])
         self.bias = (
             _init.normal((out_channels,) + (1,) * len(self.n_modes), std, device, generator)
             if use_bias else None
@@ -142,6 +148,7 @@ class SpectralConv(nn.Module):
             n_modes=halve_last_mode(self.n_modes, complex_data=False),
             max_n_modes=self.max_n_modes,
             fft_norm=self.fft_norm,
+            fno_block_precision=self.fno_block_precision,
         )
 
     def transform(self, x: torch.Tensor) -> torch.Tensor:
@@ -161,6 +168,7 @@ def spectral_conv_forward(
     n_modes: Sequence[int],
     max_n_modes: Sequence[int],
     fft_norm: str = "forward",
+    fno_block_precision: str = "full",
 ) -> torch.Tensor:
     """Functional core: x (b, in, d1..dN), weight (2, in, out, m1..mN).
 
@@ -177,10 +185,11 @@ def spectral_conv_forward(
             f"SpectralConv on axes over {MAX_DFT_AXIS} points (the FFT path)",
             "the other families",
         )
-    if x.dtype != torch.float32:
-        raise not_ported(f"SpectralConv on {x.dtype} inputs", "mixed/half precision")
-    if x.is_cuda:
-        _use_full_f32_matmuls()
+    # "half" and "mixed": bf16 operands with f32 sums, rounded where the
+    # JAX function rounds. On real data the two are one path: "half"'s
+    # rounding of x through bf16 is the cast of the DFT input.
+    mixed = fno_block_precision in ("half", "mixed")
+    x = x.to(torch.bfloat16 if mixed else torch.float32)
 
     fft_size = list(mode_sizes)
     fft_size[-1] = fft_size[-1] // 2 + 1
@@ -192,6 +201,8 @@ def spectral_conv_forward(
         fft_size, n_modes, max_n_modes, separable=False, complex_data=False
     )
     w = weight[(slice(None), *slices)]
+    if not mixed:
+        w = w.float()  # bf16 storage is read as f32; "mixed" casts it for the contraction
     kept = list(w.shape[3:])
 
     kept_last = min(kept[-1], fft_size[-1])
@@ -202,18 +213,23 @@ def spectral_conv_forward(
         # weight wider than the spectrum: trim its last-mode entries
         w = w[..., :kept_last]
 
-    out_r, out_i = contract_dense((br, bi), (w[0], w[1]))
+    out_r, out_i = contract_dense((br, bi), (w[0], w[1]),
+                                  compute_dtype=torch.bfloat16 if mixed else None)
 
     half = mode_sizes[-1] // 2 + 1
     out_r = _shrink_centered(out_r, mode_sizes[:-1], axes[:-1])
     out_i = _shrink_centered(out_i, mode_sizes[:-1], axes[:-1])
     out_r = out_r[..., : min(out_r.shape[-1], half)]
     out_i = out_i[..., : min(out_i.shape[-1], half)]
+    if mixed:
+        out_r, out_i = out_r.to(torch.bfloat16), out_i.to(torch.bfloat16)
     for i, ax in enumerate(axes[:-1]):
         out_r, out_i = dft_scatter_axis(out_r, out_i, mode_sizes[i], ax, fft_norm)
     y = rdft_scatter_last(out_r, out_i, mode_sizes[-1], fft_norm)
+    if mixed:
+        y = y.to(torch.bfloat16)
     if bias is not None:
-        y = y + bias[None]
+        y = y + bias[None].to(y.dtype)
     return y
 
 

@@ -8,7 +8,7 @@ devices the contraction runs through ``ModeContraction``, so its backward
 is the kernels' (K2 and K3) on the card and their plain versions on the CPU.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,14 +17,20 @@ from .spectral_contraction import ModeContraction
 Parts = Tuple[torch.Tensor, torch.Tensor]
 
 
-def contract_dense(x: Parts, weight: Parts) -> Parts:
+def contract_dense(x: Parts, weight: Parts,
+                   compute_dtype: Optional[torch.dtype] = None) -> Parts:
     """x (re, im) of (b, i, m...), weight (re, im) of (i, o, m...) -> f32 (b, o, m...).
 
-    The modes are flattened into one trailing axis, which keeps the natural
-    layout: no operand is transposed.
+    ``compute_dtype`` (``torch.bfloat16`` under the "half" and "mixed"
+    block precisions) is the dtype both operands are cast to first, so the
+    kernels run their bf16 variants and sum in f32, as the JAX
+    ``contract_dense`` casts them. The modes are flattened into one
+    trailing axis, which keeps the natural layout: no operand is transposed.
     """
     xr, xi = x
     wr, wi = weight
+    if compute_dtype is not None:
+        xr, xi, wr, wi = (t.to(compute_dtype) for t in (xr, xi, wr, wi))
     b, i, *modes = xr.shape
     o = wr.shape[1]
     if tuple(wr.shape) != (i, o, *modes):

@@ -7,11 +7,19 @@ axis transform is one ``(kept x n)`` DFT matmul and each inverse one
 Hermitian constraint. These are plain large matmuls, left to
 ``torch.matmul`` as the JAX package left them to XLA.
 
+Operands are float32 or bfloat16, as in the JAX helpers: float32 products
+are f32-accurate (the JAX ``Precision.HIGH``); bfloat16 operands meet the
+matrix rounded to bfloat16, every product is summed in float32 and rounded
+to bfloat16 once, and ``rdft_scatter_last`` returns the float32 sum of its
+two products. Each matmul runs, forward and backward, inside
+:func:`dft_matmul_precision`.
+
 The matrices are built once per (n, kept, norm) in numpy (float64 maths,
-stored as float32) and cached as tensors once per device, outside inference
-mode so that serving and training can share them in one process.
+stored as float32) and cached as tensors once per device and dtype, outside
+inference mode so that serving and training can share them in one process.
 """
 
+import contextlib
 import functools
 from typing import List, Sequence, Tuple
 
@@ -114,9 +122,10 @@ _BUILDERS = {
 
 
 @functools.lru_cache(maxsize=256)
-def _matrix(kind: str, n: int, kept: int, norm: str,
-            device: torch.device) -> torch.Tensor:
-    """One cached (2, rows, cols) float32 matrix on ``device``.
+def _matrix(kind: str, n: int, kept: int, norm: str, device: torch.device,
+            dtype: torch.dtype = torch.float32, widen: bool = False) -> torch.Tensor:
+    """One cached (2, rows, cols) matrix on ``device``, rounded to ``dtype``
+    (and held in float32 again with ``widen``).
 
     Built outside inference mode whatever mode the caller is in: a matrix
     first built by a served forward (``torch.inference_mode``) would
@@ -124,44 +133,101 @@ def _matrix(kind: str, n: int, kept: int, norm: str,
     same sizes cannot save for its backward.
     """
     with torch.inference_mode(False):
-        return torch.from_numpy(_BUILDERS[kind](n, kept, norm)).to(device)
+        d = torch.from_numpy(_BUILDERS[kind](n, kept, norm)).to(device=device, dtype=dtype)
+        return d.float() if widen else d
+
+
+@contextlib.contextmanager
+def dft_matmul_precision():
+    """cuBLAS's switches for the DFT matmuls, restored to the caller's values on exit.
+
+    TF32 is off, so float32 products are f32-accurate (the JAX package asks
+    for ``Precision.HIGH`` on each DFT matmul, whatever the default), and
+    bfloat16 products keep every partial sum in float32 (its
+    ``preferred_element_type=float32``; cuBLAS may otherwise reduce split-K
+    partials in bfloat16). Both switches are process-wide and read when a
+    matmul is issued, a matmul captured into a CUDA graph included, so they
+    are set around each product and put back after it: what
+    ``training.setup(matmul_precision=...)`` chose holds everywhere else.
+    """
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction
+    flags.allow_tf32 = False
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction = saved
+
+
+class _DftMatmul(torch.autograd.Function):
+    """``d @ x`` (``left``) or ``x @ d`` for a constant matrix ``d``, inside
+    :func:`dft_matmul_precision` forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, d, left: bool):
+        ctx.save_for_backward(d)
+        ctx.left = left
+        with dft_matmul_precision():
+            return torch.matmul(d, x) if left else torch.matmul(x, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        with dft_matmul_precision():
+            gx = torch.matmul(d.mT, g) if ctx.left else torch.matmul(g, d.mT)
+        return gx, None, None
 
 
 def _axis_complex_matmul(xr, xi, d: torch.Tensor, axis: int):
-    """Apply a complex (rows x n) matrix along ``axis`` of split-real x."""
+    """Apply a complex (rows x n) matrix along ``axis`` of split-real x.
+
+    Each of the four products comes out in x's dtype (rounded once from
+    its float32 sum for bfloat16), and the two combinations are formed in
+    that dtype, as in the JAX helper.
+    """
     axis = axis % xr.ndim
-    dr, di = d[0].to(xr.dtype), d[1].to(xr.dtype)
     ar, ai = xr.movedim(axis, -2), xi.movedim(axis, -2)
-    yr = torch.matmul(dr, ar) - torch.matmul(di, ai)
-    yi = torch.matmul(dr, ai) + torch.matmul(di, ar)
+
+    def mm(a, m):
+        return _DftMatmul.apply(a, m, True)
+
+    yr = mm(ar, d[0]) - mm(ai, d[1])
+    yi = mm(ai, d[0]) + mm(ar, d[1])
     return yr.movedim(-2, axis), yi.movedim(-2, axis)
 
 
 def dft_gather_axis(xr, xi, kept: int, axis: int, norm: str):
     """fft + centered gather along one axis as a truncated DFT matmul."""
     n = xr.shape[axis]
-    d = _matrix("dft_gather", n, kept, norm, xr.device)
+    d = _matrix("dft_gather", n, kept, norm, xr.device, xr.dtype)
     return _axis_complex_matmul(xr, xi, d, axis)
 
 
 def dft_scatter_axis(xr, xi, n_out: int, axis: int, norm: str):
     """centered scatter + ifft along one axis as an inverse-DFT matmul."""
     kept = xr.shape[axis]
-    d = _matrix("dft_scatter", n_out, kept, norm, xr.device)
+    d = _matrix("dft_scatter", n_out, kept, norm, xr.device, xr.dtype)
     return _axis_complex_matmul(xr, xi, d, axis)
 
 
 def rdft_gather_last(x: torch.Tensor, kept: int, norm: str):
-    """``rfft(x, dim=-1)[..., :kept]`` as two real matmuls."""
-    d = _matrix("rdft_gather", x.shape[-1], kept, norm, x.device).to(x.dtype)
-    return torch.matmul(x, d[0].T), torch.matmul(x, d[1].T)
+    """``rfft(x, dim=-1)[..., :kept]`` as two real matmuls, in x's dtype."""
+    d = _matrix("rdft_gather", x.shape[-1], kept, norm, x.device, x.dtype)
+    return _DftMatmul.apply(x, d[0].T, False), _DftMatmul.apply(x, d[1].T, False)
 
 
-def rdft_scatter_last(cr, ci, n_out: int, norm: str):
-    """Hermitian-enforced truncated inverse rfft along the last axis."""
-    a = _matrix("rdft_scatter", n_out, cr.shape[-1], norm, cr.device)
-    a = a.to(cr.dtype)
-    return torch.matmul(cr, a[0].T) + torch.matmul(ci, a[1].T)
+def rdft_scatter_last(cr, ci, n_out: int, norm: str) -> torch.Tensor:
+    """Hermitian-enforced truncated inverse rfft along the last axis; float32.
+
+    bfloat16 operands are widened to float32 (exactly), with the matrix's
+    bfloat16 values, so each product is the float32 sum of exact products
+    and the result their float32 sum, as the JAX helper returns it.
+    """
+    a = _matrix("rdft_scatter", n_out, cr.shape[-1], norm, cr.device, cr.dtype,
+                widen=cr.dtype != torch.float32)
+    return (_DftMatmul.apply(cr.float(), a[0].T, False)
+            + _DftMatmul.apply(ci.float(), a[1].T, False))
 
 
 def resolve_weight_slices(

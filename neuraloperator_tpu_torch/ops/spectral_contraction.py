@@ -15,7 +15,8 @@ numbers:
 
 The TPU kernel's operands were transposed to mode-major blocks around the
 call; here they are not. Each wrapper launches ``csrc/spectral_contraction.cu``
-for CUDA tensors (counting the launch in ``<wrapper>.launches``) and runs
+for CUDA tensors (counting the launch in ``<wrapper>.launches``, and by the
+operands' dtype in ``<wrapper>.launches_by_dtype``) and runs
 its plain version (``*_reference``) for CPU tensors. All three are bound by
 the bytes of their weight-sized operand or result (see the source's note);
 :func:`mode_contraction_plan` and :func:`mode_contraction_dw_plan` report
@@ -175,7 +176,7 @@ def mode_contraction(xr, xi, wr, wi) -> Parts:
     if xr.device.type == "cpu":
         return mode_contraction_reference(xr, xi, wr, wi)
     out = _launch("fwd", (xr, xi), (wr, wi), (B, O, M), (B, I, O, M))
-    mode_contraction.launches += 1
+    _count(mode_contraction, xr.dtype)
     return out
 
 
@@ -185,7 +186,7 @@ def mode_contraction_dx(gr, gi, wr, wi) -> Parts:
     if gr.device.type == "cpu":
         return mode_contraction_dx_reference(gr, gi, wr, wi)
     out = _launch("dx", (gr, gi), (wr, wi), (B, I, M), (B, I, O, M))
-    mode_contraction_dx.launches += 1
+    _count(mode_contraction_dx, gr.dtype)
     return out
 
 
@@ -195,7 +196,7 @@ def mode_contraction_dw(xr, xi, gr, gi) -> Parts:
     if xr.device.type == "cpu":
         return mode_contraction_dw_reference(xr, xi, gr, gi)
     out = _launch("dw", (xr, xi), (gr, gi), (I, O, M), (B, I, O, M))
-    mode_contraction_dw.launches += 1
+    _count(mode_contraction_dw, xr.dtype)
     return out
 
 
@@ -254,19 +255,37 @@ def mode_contraction_dw_plan(xr, xi, gr, gi) -> dict:
             "smem_bytes": smem, "units": units, "grid": grid}
 
 
-mode_contraction.launches = 0
-mode_contraction_dx.launches = 0
-mode_contraction_dw.launches = 0
 _COUNTED = (mode_contraction, mode_contraction_dx, mode_contraction_dw)
+# the operand dtypes the kernels take, by the names the counts use
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
-def launch_counts() -> Dict[str, int]:
-    """Each kernel wrapper's launch count, by the wrapper's name."""
+def reset_launch_counts() -> None:
+    """Set every wrapper's launch counts (total and by dtype) to 0."""
+    for fn in _COUNTED:
+        fn.launches = 0
+        fn.launches_by_dtype = dict.fromkeys(_DTYPE_NAMES.values(), 0)
+
+
+reset_launch_counts()
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    fn.launches += 1
+    fn.launches_by_dtype[_DTYPE_NAMES[dtype]] += 1
+
+
+def launch_counts(by_dtype: bool = False) -> Dict[str, object]:
+    """Each kernel wrapper's launch count, by the wrapper's name; with
+    ``by_dtype``, ``{name: {"float32": n, "bfloat16": n}}`` instead."""
+    if by_dtype:
+        return {fn.__name__: dict(fn.launches_by_dtype) for fn in _COUNTED}
     return {fn.__name__: fn.launches for fn in _COUNTED}
 
 
-def add_launches(counts: Mapping[str, int]) -> None:
-    """Add ``counts`` (by wrapper name) to the wrappers' launch counts.
+def add_launches(counts: Mapping[str, Mapping[str, int]]) -> None:
+    """Add ``counts`` (``{name: {dtype name: n}}``, as ``launch_counts(by_dtype=True)``
+    gives them) to the wrappers' counts, the totals included.
 
     A CUDA graph that holds these kernels launches them on every replay
     without calling the wrappers; its owner counts the replay here, and
@@ -274,7 +293,9 @@ def add_launches(counts: Mapping[str, int]) -> None:
     (capture runs no kernel).
     """
     for fn in _COUNTED:
-        fn.launches += counts.get(fn.__name__, 0)
+        for dtype, n in counts.get(fn.__name__, {}).items():
+            fn.launches += n
+            fn.launches_by_dtype[dtype] += n
 
 
 class ModeContraction(torch.autograd.Function):

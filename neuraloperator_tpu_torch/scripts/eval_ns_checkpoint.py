@@ -32,6 +32,7 @@ from ..data.datasets.ns_solver import make_nsforcing_split
 from ..data.transforms import load_data_processor
 from ..losses import H1Loss, LpLoss
 from ..models import load_flagship
+from ..training.trainer import half_precision_forward
 
 # its test split: seed 0 + 10_000, 40 trajectories of its default solver settings
 TEST_SEED = 10_000
@@ -40,14 +41,17 @@ SOLVER = dict(visc=1e-3, T=50.0, dt=1e-3, record_dt=1.0)
 
 
 @torch.inference_mode()
-def evaluate(model, processor, xs, ys, batch: int, device="cuda") -> dict:
+def evaluate(model, processor, xs, ys, batch: int, device="cuda",
+             mixed_precision: bool = False) -> dict:
     """Mean relative L2 and H1 error of ``model`` on the pairs ``(xs, ys)``.
 
     ``xs`` and ``ys`` are (N, 1, n, n) float32 arrays; ``model`` sits on
     ``device``. Each batch of ``batch`` pairs is normalized by
     ``processor.preprocess(train=False)``, run, and denormalized by
     ``processor.postprocess``; its ``reduction="mean"`` losses are weighted
-    by its length. A ragged tail is dropped. Returns ``{"pairs",
+    by its length. A ragged tail is dropped. With ``mixed_precision`` the
+    forward is the ``Trainer(mixed_precision=True)`` eval step's (bf16
+    parameters and input, the output taken in f32). Returns ``{"pairs",
     "rel_l2", "rel_h1"}``.
     """
     device = resolve_device(device)
@@ -58,7 +62,11 @@ def evaluate(model, processor, xs, ys, batch: int, device="cuda") -> dict:
         x = torch.as_tensor(xs[i:i + batch]).to(device)
         y = torch.as_tensor(ys[i:i + batch]).to(device)
         sample = processor.preprocess({"x": x}, train=False)
-        out, _ = processor.postprocess(model(sample["x"]), sample, train=False)
+        if mixed_precision:
+            out = half_precision_forward(model, {"x": sample["x"]}).float()
+        else:
+            out = model(sample["x"])
+        out, _ = processor.postprocess(out, sample, train=False)
         # python-float sums of the JAX script, in float64 on the device
         tot_l2 = tot_l2 + l2(out, y).double() * len(x)
         tot_h1 = tot_h1 + h1(out, y).double() * len(x)

@@ -10,7 +10,9 @@ latency, and sends one ragged request through the bucket dispatcher.
 
 Usage:
   python -m neuraloperator_tpu_torch.scripts.serve_model --ckpt_dir runs/mymodel \\
-      --name model --shape '[1,128,128]' [--buckets '[1,8]'] [--device cuda]
+      --name model --shape '[1,128,128]' [--buckets '[1,8]'] [--bf16 true] [--device cuda]
+
+``--bf16 true`` serves the weights cast to bfloat16 (requests stay f32).
 """
 
 import argparse
@@ -50,8 +52,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    if args.bf16:
-        raise not_ported("serve_model --bf16", "mixed/half precision")
     if args.export:
         raise not_ported("serve_model --export", "quantize/export")
     device = resolve_device(args.device)
@@ -75,8 +75,9 @@ def main(argv=None) -> dict:
         print("baked saved normalizers into the endpoint")
 
     example = torch.zeros((args.buckets[0], *args.shape))
-    srv = CompiledForward(model, example, batch_sizes=args.buckets, preprocess_fn=pre,
-                          postprocess_fn=post, device=device)
+    srv = CompiledForward(model, example, batch_sizes=args.buckets,
+                          param_dtype=torch.bfloat16 if args.bf16 else None,
+                          preprocess_fn=pre, postprocess_fn=post, device=device)
     print("compile seconds per bucket:",
           {b: round(s, 2) for b, s in srv.compile_seconds.items()})
     latency_ms = {}

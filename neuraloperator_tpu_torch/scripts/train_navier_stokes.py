@@ -8,8 +8,11 @@ as is: the NS splits from ``data/datasets/navier_stokes.py``'s default root
 and the replayed CUDA graph of the step), ``--save_dir`` with
 ``--save_every`` and ``--save_best``, ``--warm_start_from`` for a first
 launch and ``--resume_from_dir`` for every relaunch, in the JAX package's
-checkpoint format. Multigrid patching, the mesh, EMA and mixed precision
-raise ``NotImplementedError`` naming their ROADMAP item.
+checkpoint format. The JAX package's mixed-precision run
+(``scripts/run_round4_post.sh:23-24``) runs as well: ``--model.weight_dtype
+bfloat16 --model.fno_block_precision mixed --opt.mixed_precision true``.
+Multigrid patching, the mesh, EMA and stochastic rounding raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Usage:
   python -m neuraloperator_tpu_torch.scripts.train_navier_stokes --opt.n_epochs 50 \\
@@ -104,8 +107,6 @@ def main(argv=None) -> dict:
         raise not_ported("--patching.levels > 0", "the rest of losses, training and data")
     if config.distributed.use_distributed:
         raise not_ported("--distributed.use_distributed", "distribution")
-    if config.opt.mixed_precision:
-        raise not_ported("--opt.mixed_precision", "mixed/half precision")
     if config.opt.ema_decay > 0:
         raise not_ported("--opt.ema_decay", "factored8/EMA/SR")
     setup(config)
@@ -137,6 +138,7 @@ def main(argv=None) -> dict:
         n_epochs=config.opt.n_epochs,
         data_processor=data_processor,
         eval_interval=config.eval_interval,
+        mixed_precision=config.opt.mixed_precision,
         stochastic_rounding=config.opt.stochastic_rounding,
         verbose=config.verbose,
         device=device,

@@ -42,8 +42,13 @@ class CompiledForward:
         answers, and ``model`` itself is left where it was, in the mode it
         was in. The copy costs one set of weights on ``device`` (277 MB for
         the f32 flagship FNO)
-    example_input : tensor ``(b, ...)`` fixing every non-batch dim and the dtype
+    example_input : tensor ``(b, ...)`` fixing every non-batch dim and the
+        dtype every request is cast to
     batch_sizes : bucket list (default ``(1, 8)``), sorted ascending
+    param_dtype : e.g. ``torch.bfloat16``: every floating parameter of the
+        served copy is cast to it once, here. Requests keep the example's
+        dtype, so an f32 request computes in f32 over the rounded weights
+        (each layer works in the promoted dtype of its input and weights)
     preprocess_fn : applied to the padded input before the model (e.g.
         ``data_processor.in_normalizer.transform``)
     postprocess_fn : applied to the model output (e.g.
@@ -64,14 +69,16 @@ class CompiledForward:
         *,
         device="cuda",
     ):
-        if param_dtype is not None:
-            raise not_ported("CompiledForward param_dtype", "mixed/half precision")
         if quantize is not None:
             raise not_ported("CompiledForward quantize", "quantize/export")
         if mesh is not None:
             raise not_ported("CompiledForward mesh", "the other families")
         self.device = resolve_device(device)
         self.model = copy.deepcopy(model).to(self.device).eval()
+        if param_dtype is not None:
+            for p in self.model.parameters():
+                if p.is_floating_point():
+                    p.data = p.data.to(param_dtype)
         self.preprocess_fn = preprocess_fn
         self.postprocess_fn = postprocess_fn
         self.batch_sizes = tuple(sorted(int(b) for b in batch_sizes))

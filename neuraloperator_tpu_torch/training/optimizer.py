@@ -30,6 +30,7 @@ own step. ``state_dict`` and ``load_state_dict`` speak optax's state tree
 each other's ``optimizer.msgpack``.
 """
 
+import functools
 from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
@@ -72,6 +73,13 @@ def step_lr(base_lr: float, step_size: int, gamma: float = 0.5,
 
 def _is_factored(p: torch.Tensor) -> bool:
     return p.ndim >= 2
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: JAX casts a Python scalar to the dtype
+    of the array it multiplies, so a bf16 gradient meets bf16 constants."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 class AdamW(torch.optim.Optimizer):
@@ -133,9 +141,11 @@ class AdamW(torch.optim.Optimizer):
             self.lr.fill_(lr)
 
     def _init_state(self, p: torch.Tensor) -> dict:
-        # second-moment statistics are f32 whatever the parameter's dtype
+        # as the JAX Trainer builds the optax state from the f32-promoted
+        # parameters: a bf16 parameter gets an f32 first moment unless
+        # mu_dtype says otherwise, and the second moment is f32 always
         f32 = dict(dtype=torch.float32, device=p.device)
-        state = {"mu": torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)}
+        state = {"mu": torch.zeros_like(p, dtype=self.mu_dtype or torch.float32)}
         if self.factored and _is_factored(p):
             state["nu_row"] = torch.zeros(p.shape[:-1], **f32)
             state["nu_col"] = torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)
@@ -163,24 +173,29 @@ class AdamW(torch.optim.Optimizer):
                 g = torch.zeros_like(p) if p.grad is None else p.grad
                 u = self._adam_direction(g, self.state[p], b1, b2, b1c, b2c, group["eps"])
                 # add_decayed_weights, then scale_by_learning_rate
-                u = u + group["weight_decay"] * p
+                u = u + _rounded(group["weight_decay"], p.dtype) * p
                 u = -lr * u
                 # with_final_update_cast: the update takes the parameter's
-                # dtype; a no-op for the f32 parameters the port trains
+                # dtype (bf16 for bf16-stored weights) and is added in it
                 u = u.to(p.dtype)
                 p.add_((u.float() * lr_scale).to(u.dtype))
 
     def _adam_direction(self, g, state, b1, b2, b1c, b2c, eps) -> torch.Tensor:
         """The scaled Adam direction ``m_hat / (sqrt(v_hat) + eps)``, updating the state."""
         mu = state["mu"]
+        # each term in its operand's dtype, its constant rounded to it: for a
+        # bf16 parameter's gradient, (1 - b1) * g is a bf16 product
+        b1_g, b1c_g = _rounded(b1, g.dtype), _rounded(1 - b1, g.dtype)
         if self.factored:
             # scale_by_adam_factored stores mu in its dtype and reads it back
             # from there, so a bf16 mu feeds the update rounded
-            mu.copy_(b1 * mu.to(g.dtype) + (1 - b1) * g)
+            mu.copy_(b1_g * mu.to(g.dtype) + b1c_g * g)
             m = mu
         else:
-            # optax.scale_by_adam feeds the update the unrounded moment
-            m = (1 - b1) * g + b1 * mu.to(g.dtype)
+            # optax.scale_by_adam feeds the update the unrounded moment; the
+            # sum takes the promoted dtype
+            mu_p = mu.to(torch.promote_types(g.dtype, mu.dtype))
+            m = b1c_g * g + _rounded(b1, mu_p.dtype) * mu_p
             mu.copy_(m)
         g32 = g.float()
         if "nu" in state:
@@ -188,7 +203,7 @@ class AdamW(torch.optim.Optimizer):
             if self.factored:
                 nu.copy_(b2 * nu + (1 - b2) * g32 * g32)
             else:
-                nu.copy_((1 - b2) * g32 ** 2 + b2 * nu)
+                nu.copy_(_rounded(1 - b2, g.dtype) * g ** 2 + b2 * nu)
             v = nu
         else:
             r, c = state["nu_row"], state["nu_col"]
@@ -257,17 +272,20 @@ def adamw(
 ) -> AdamWTransform:
     """AdamW with torch's defaults; see the module docstring for the policies.
 
-    ``mu_dtype`` is None (the parameter's dtype) or ``torch.bfloat16``.
-    ``cast_final_updates`` casts each update to its parameter's dtype,
-    which for the f32 parameters of the port is a no-op either way.
+    ``mu_dtype`` is None (f32, the dtype of the f32-promoted parameter the
+    JAX Trainer builds the state from) or ``torch.bfloat16``.
+    Each update is cast to its parameter's dtype before it is added
+    (``with_final_update_cast``); ``cast_final_updates=False``, which the
+    JAX package sets only for stochastic rounding, raises.
     """
     if max_grad_norm is not None:
         raise not_ported("adamw max_grad_norm", "the rest of losses, training and data")
     if mu_dtype == "int8":
         raise not_ported("adamw mu_dtype='int8' (factored8)", "factored8/EMA/SR")
+    if not cast_final_updates:
+        raise not_ported("adamw cast_final_updates=False", "factored8/EMA/SR")
     if mu_dtype not in (None, torch.bfloat16, torch.float32):
         raise ValueError(f"mu_dtype must be None or torch.bfloat16, got {mu_dtype!r}")
-    del cast_final_updates  # see the docstring
     return AdamWTransform(
         learning_rate=learning_rate, weight_decay=weight_decay, betas=betas,
         eps=eps, mu_dtype=mu_dtype, factored_second_moment=factored_second_moment,

@@ -42,7 +42,7 @@ class StagedStep:
         self.lr_scale = torch.ones((), dtype=torch.float32, device=device)
         self.loss_sum = torch.zeros((), dtype=torch.float64, device=device)
         self.graph = None
-        self._launches_per_replay: Dict[str, int] = {}
+        self._launches_per_replay: Dict[str, Dict[str, int]] = {}
 
     def _body(self) -> None:
         batch = {k: v.index_select(0, self.index) for k, v in self.data.items()}
@@ -68,11 +68,15 @@ class StagedStep:
         torch.cuda.current_stream(device).wait_stream(side)
 
         graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
+        before = launch_counts(by_dtype=True)
         with torch.cuda.graph(graph):
             self._body()
-        recorded = launch_counts()
-        self._launches_per_replay = {k: recorded[k] - before[k] for k in recorded}
+        recorded = launch_counts(by_dtype=True)
+        self._launches_per_replay = {
+            name: {dt: n - before[name][dt] for dt, n in by_dtype.items()}
+            for name, by_dtype in recorded.items()
+        }
         # capture ran no kernel: take back what the wrappers counted
-        add_launches({k: -n for k, n in self._launches_per_replay.items()})
+        add_launches({name: {dt: -n for dt, n in by_dtype.items()}
+                      for name, by_dtype in self._launches_per_replay.items()})
         self.graph = graph

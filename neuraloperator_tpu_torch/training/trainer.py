@@ -14,6 +14,13 @@ set on the device once and gathers each shuffled batch there by index; on
 the card that step is one CUDA graph, replayed (``staged_step.py``).
 Checkpoints are the JAX package's files (``training_state.py``): a run of
 either package resumes, or warm-starts from, the other's.
+
+``mixed_precision=True`` is the JAX ``Trainer``'s ``_half_policy``: the
+train and eval forwards (and the backward) run on bf16 copies of the f32
+parameters and bf16 float inputs (:func:`half_precision_forward`), the loss
+is taken on the output in f32, and the gradients land on the f32 master
+parameters through the casts. Not ``torch.autocast``: its op lists keep
+adds, GELU and reductions in f32, which the JAX package computes in bf16.
 """
 
 import json
@@ -31,6 +38,35 @@ from ..losses import LpLoss
 from ..models import base_model  # a module: base_model imports this package too
 from .staged_step import StagedStep
 from .training_state import load_training_state, read_manifest, save_training_state
+
+
+def half_precision_forward(model: torch.nn.Module, kwargs: dict) -> torch.Tensor:
+    """``model(**kwargs)`` under the JAX ``Trainer._half_policy``.
+
+    Every f32 parameter and every f32 input is cast to bf16 (differentiably:
+    the gradient reaches the f32 parameter in f32); a parameter stored in
+    another dtype (the bf16 spectral weights of ``weight_dtype="bfloat16"``)
+    is used as it is and gets a gradient in its own dtype.
+    """
+    def to_half(t):
+        return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+    params = {name: to_half(p) for name, p in model.named_parameters()}
+    return torch.func.functional_call(
+        model, params, kwargs={k: to_half(v) for k, v in kwargs.items()})
+
+
+def _output(model: torch.nn.Module, kwargs: dict, mixed_precision: bool) -> torch.Tensor:
+    """The model's output in f32, under the half policy when ``mixed_precision``.
+
+    A function, not a method: the step closures that call it must not hold
+    the Trainer, which holds them (through ``staged_step``), or the Trainer,
+    its model and its CUDA graph would outlive the last reference to it
+    until the cyclic garbage collector ran.
+    """
+    if mixed_precision:
+        return half_precision_forward(model, kwargs).float()
+    return model(**kwargs).float()
 
 
 class Trainer:
@@ -58,13 +94,12 @@ class Trainer:
             raise not_ported("Trainer wandb_log", "the rest of losses, training and data")
         if mesh is not None or use_distributed or zero_sharding:
             raise not_ported("Trainer mesh/use_distributed/zero_sharding", "distribution")
-        if mixed_precision:
-            raise not_ported("Trainer mixed_precision", "mixed/half precision")
         if stochastic_rounding:
             raise not_ported("Trainer stochastic_rounding", "factored8/EMA/SR")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.n_epochs = n_epochs
+        self.mixed_precision = mixed_precision
         self.data_processor = data_processor
         self.eval_interval = eval_interval
         self.verbose = verbose
@@ -83,6 +118,7 @@ class Trainer:
         data_processor = self.data_processor
         model = self.model
         optimizer = self.optimizer
+        mixed = self.mixed_precision
 
         def loss_fn(batch):
             sample = dict(batch)
@@ -93,7 +129,7 @@ class Trainer:
             kwargs = {
                 k: v for k, v in sample.items() if k != "y" and not k.startswith("_loss_")
             }
-            out = model(**kwargs).float()
+            out = _output(model, kwargs, mixed)
             if data_processor is not None:
                 out, sample = data_processor.postprocess(out, sample, train=True)
             if "_loss_ynorm_sq" in sample:
@@ -124,6 +160,7 @@ class Trainer:
     def _build_eval_step(self, eval_losses) -> Callable:
         data_processor = self.data_processor
         model = self.model
+        mixed = self.mixed_precision
 
         @torch.no_grad()
         def step(batch) -> Dict[str, torch.Tensor]:
@@ -132,7 +169,7 @@ class Trainer:
             if data_processor is not None:
                 sample = data_processor.preprocess(sample, train=False)
             kwargs = {k: v for k, v in sample.items() if k != "y"}
-            out = model(**kwargs).float()
+            out = _output(model, kwargs, mixed)
             if data_processor is not None:
                 out, sample = data_processor.postprocess(out, sample, train=False)
             return {name: loss(out, sample["y"]) for name, loss in eval_losses.items()}

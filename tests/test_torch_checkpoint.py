@@ -191,12 +191,21 @@ def test_serve_model_serves_both_layouts(saved, name, capsys):
 
 @pytest.mark.parametrize("flag,what", [("--bf16", "mixed/half precision"),
                                        ("--export", "quantize/export")])
-def test_serve_model_options_not_ported(saved, flag, what):
+def test_serve_model_options_not_ported(saved, flag, what, capsys):
+    """``--export`` raises naming its ROADMAP item; ``--bf16`` (mixed/half
+    precision) is ported and serves the weights in bf16."""
     from neuraloperator_tpu_torch.scripts import serve_model
 
+    argv = ["--ckpt_dir", str(saved[0]), "--name", "best_model", flag, "true",
+            "--shape", "[1,16,16]", "--buckets", "[1,2]", "--probe_iters", "1",
+            "--device", "cpu"]
+    if flag == "--bf16":
+        result = serve_model.main(argv)
+        assert "bucket 2:" in capsys.readouterr().out
+        assert result["ragged"] == {"batch": 1, "shape": (1, 1, 16, 16), "finite": True}
+        return
     with pytest.raises(NotImplementedError, match=what):
-        serve_model.main(["--ckpt_dir", str(saved[0]), "--name", "best_model", flag, "true",
-                          "--device", "cpu"])
+        serve_model.main(argv)
 
 
 @pytest.mark.slow

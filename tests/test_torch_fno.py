@@ -256,10 +256,15 @@ def test_init_follows_the_jax_distributions(flax_module, port_module, x_shape, n
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpectralConv(4, 4, (4, 4), fno_block_precision="mixed", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpectralConv(4, 4, (4, 4), weight_dtype="bfloat16", device="cpu")
+    # the block precisions and bf16 weight storage are ported
+    # (tests/test_torch_mixed_precision.py holds them to JAX); unknown values raise
+    conv = SpectralConv(4, 4, (4, 4), fno_block_precision="mixed", weight_dtype="bfloat16",
+                        device="cpu")
+    assert conv.w_weight.dtype == torch.bfloat16 and conv.bias.dtype == torch.float32
+    with pytest.raises(ValueError, match="fno_block_precision"):
+        SpectralConv(4, 4, (4, 4), fno_block_precision="quarter", device="cpu")
+    with pytest.raises(ValueError, match="weight_dtype"):
+        SpectralConv(4, 4, (4, 4), weight_dtype="float16", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FNO((4, 4), 1, 1, 4, scan_layers=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -17,7 +17,10 @@ Navier–Stokes solver on the card against the CPU: relative l2 <= 1e-5 per
 snapshot after one record of 1000 steps (cuFFT and pocketfft round
 differently: 1.7e-7 measured at 128², see chip_smoke.py's SOLVER_TOL). The evaluation of the
 published weights on the card against the CPU: each figure within 1e-4
-relative.
+relative. Under the mixed-precision policy (bf16 pipelines on both
+devices, which differ in the order of f32 sums alone), card against CPU:
+one train step's loss within 1e-2 relative and its gradients together
+within relative l2 5e-2, evaluation figures within 10%.
 """
 
 import json
@@ -324,3 +327,87 @@ def test_graphed_staged_epoch_matches_the_eager_loop(card):
     for name in got:
         step_got, step_want = got[name] - init[name].double(), want[name] - init[name].double()
         assert float((step_got - step_want).norm() / step_want.norm()) <= 1e-4, name
+
+
+def _mixed_pair(meta_overrides, seed=0):
+    """A small flagship-shaped model with bf16 spectral weights and "mixed"
+    blocks on the card, and its copy on the CPU."""
+    meta = json.loads(METADATA.read_text())
+    meta["init_kwargs"].update({"n_modes": [16, 16], "hidden_channels": 16, "n_layers": 2,
+                                "weight_dtype": "bfloat16", "fno_block_precision": "mixed",
+                                **meta_overrides})
+    model = model_from_metadata(meta, device="cuda",
+                                generator=torch.Generator().manual_seed(seed))
+    cpu_model = model_from_metadata(meta, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return model, cpu_model
+
+
+def test_mixed_step_and_eval_on_the_card_match_the_cpu(card):
+    """One mixed ``Trainer`` step (the half policy) and a mixed evaluation,
+    card against CPU. Both pipelines round the same operands at the same
+    points and differ in the order of f32 sums alone: the loss within 1e-2
+    relative, the gradients together within relative l2 5e-2 (the tolerances
+    of chip_smoke.py's mixed phase), the evaluation figures within 10%."""
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.scripts.eval_ns_checkpoint import evaluate
+    from neuraloperator_tpu_torch.training import Trainer, adamw
+
+    model, cpu_model = _mixed_pair({})
+    gen = np.random.default_rng(5)
+    x = gen.standard_normal((4, 1, 64, 64)).astype(np.float32)
+    y = (0.5 * np.roll(x, 1, axis=-1)).astype(np.float32)
+    grads, losses = {}, {}
+    for device, m in (("cuda", model), ("cpu", cpu_model)):
+        trainer = Trainer(model=m, n_epochs=1, device=device, mixed_precision=True)
+        losses[device] = trainer.train(DataLoader(TensorDataset(x, y), 4), {}, adamw(1e-3),
+                                       training_loss=H1Loss(d=2))["train_err"]
+        grads[device] = {n: p.grad.detach().float().cpu() for n, p in m.named_parameters()}
+    assert grads["cuda"]["fno_blocks.conv_0.w_weight"].dtype == torch.float32
+    assert dict(model.named_parameters())["fno_blocks.conv_0.w_weight"].grad.dtype == \
+        torch.bfloat16
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-2 * abs(losses["cpu"])
+    names = sorted(grads["cpu"])
+    got = torch.cat([grads["cuda"][n].ravel() for n in names]).double()
+    want = torch.cat([grads["cpu"][n].ravel() for n in names]).double()
+    assert float((got - want).norm() / want.norm()) <= 5e-2
+
+    class Identity:
+        def preprocess(self, sample, train=False):
+            return sample
+
+        def postprocess(self, out, sample, train=False):
+            return out, sample
+
+    figures = {device: evaluate(m.eval(), Identity(), x, y, 2, device=device,
+                                mixed_precision=True)
+               for device, m in (("cuda", model), ("cpu", cpu_model))}
+    for k in ("rel_l2", "rel_h1"):
+        assert abs(figures["cuda"][k] - figures["cpu"][k]) <= 0.1 * figures["cpu"][k], figures
+
+
+def test_mixed_paths_launch_the_bf16_variants(card):
+    """Under the mixed policy the forward launches K1's bf16 variant and the
+    backward K2's and K3's, once per spectral layer, and no f32 variant; a
+    "full" model keeps the f32 variants."""
+    from neuraloperator_tpu_torch.training.trainer import half_precision_forward
+
+    model, _ = _mixed_pair({})
+    x = torch.randn(4, 1, 64, 64, device="cuda")
+    before = tsc.launch_counts(by_dtype=True)
+    half_precision_forward(model, {"x": x}).float().square().mean().backward()
+    torch.cuda.synchronize()
+    after = tsc.launch_counts(by_dtype=True)
+    delta = {n: {dt: after[n][dt] - before[n][dt] for dt in after[n]} for n in after}
+    assert delta == {name: {"float32": 0, "bfloat16": 2}
+                     for name in ("mode_contraction", "mode_contraction_dx",
+                                  "mode_contraction_dw")}
+    full, _ = _mixed_pair({"weight_dtype": "float32", "fno_block_precision": "full"})
+    before = tsc.launch_counts(by_dtype=True)
+    with torch.no_grad():
+        full(x)
+    torch.cuda.synchronize()
+    after = tsc.launch_counts(by_dtype=True)
+    assert {dt: after["mode_contraction"][dt] - before["mode_contraction"][dt]
+            for dt in ("float32", "bfloat16")} == {"float32": 2, "bfloat16": 0}

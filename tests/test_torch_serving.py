@@ -119,9 +119,14 @@ def test_compiled_forward_refuses_what_it_cannot_serve():
     with pytest.raises(ValueError, match="not a compiled bucket"):
         served.latency_probe(batch_size=3)
     assert served.latency_probe(batch_size=2, iters=2) > 0
-    for option in ({"quantize": "int8"}, {"param_dtype": torch.bfloat16}, {"mesh": object()}):
+    for option in ({"quantize": "int8"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             CompiledForward(model, torch.from_numpy(example), device="cpu", **option)
+    # param_dtype is ported (tests/test_torch_mixed_precision.py holds it to JAX)
+    bf16 = CompiledForward(model, torch.from_numpy(example), device="cpu",
+                           param_dtype=torch.bfloat16)
+    assert {p.dtype for p in bf16.model.parameters()} == {torch.bfloat16}
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
 
 
 def test_serving_then_training_in_one_process():

@@ -229,7 +229,9 @@ def test_scheduler_and_ynorm_carve_out():
 
 def test_unported_options_raise():
     _, _, model = _both()
-    for option in ({"mixed_precision": True}, {"stochastic_rounding": True},
+    # mixed_precision is ported (tests/test_torch_mixed_precision.py)
+    assert Trainer(model=model, n_epochs=1, device="cpu", mixed_precision=True).mixed_precision
+    for option in ({"stochastic_rounding": True},
                    {"mesh": object()}, {"use_distributed": True}, {"zero_sharding": True},
                    {"wandb_log": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

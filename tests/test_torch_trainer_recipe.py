@@ -280,3 +280,32 @@ def test_resumed_run_keeps_its_stored_best(tmp_path):
         warnings.simplefilter("error")
         run.port(1, save_every=1, save_dir=tmp_path)
     assert json.loads((tmp_path / "manifest.json").read_text()) == {"epoch": 0}
+
+
+@pytest.mark.parametrize("mixed_precision", [False, True])
+def test_a_staged_trainer_is_freed_by_reference_counting(mixed_precision):
+    """The staged step's closures do not hold the Trainer that holds them, so
+    dropping the last reference frees the Trainer, its model's state and (on
+    the card) its CUDA graph at once, without waiting for the cyclic
+    garbage collector."""
+    import gc
+    import weakref
+
+    run = Run()
+    warm = Trainer(model=run.model, n_epochs=1, device="cpu")  # first-use warnings
+    warm.train(*run.loaders(False, False), build_optimizer(_opt_cfg("full"), 4),
+               device_dataset=True)
+    del warm
+    gc.collect()
+    gc.disable()
+    try:
+        trainer = Trainer(model=run.model, n_epochs=1, device="cpu",
+                          mixed_precision=mixed_precision)
+        trainer.train(*run.loaders(False, False), build_optimizer(_opt_cfg("full"), 4),
+                      device_dataset=True)
+        assert trainer.staged_step is not None
+        ref = weakref.ref(trainer)
+        del trainer
+        assert ref() is None
+    finally:
+        gc.enable()
