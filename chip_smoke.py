@@ -89,7 +89,32 @@ Phases, each printed with its elapsed seconds as it goes:
    profile of two replays and the peak memory; (4) one mixed step of
    batch 2, card against CPU, from the published weights and from seeded
    ones;
-9. prints one ``{"kernels": [...]}`` line, then, as the last line,
+9. superres: the flagship's zero-shot super-resolution
+   (``scripts/eval_ns_superres.py``) through the port's entry point: 6 and 4
+   test trajectories solved on the card at 256² and 512² by
+   ``generate_ns_data``, the published weights scored at 128², 256² and
+   512² (256, 256 and 200 pairs at batch 8, the DFT path at every size);
+   128² held to (c)'s bounds, 256² and 512² to three times the JAX figures;
+   the first 8 pairs at 256² card against CPU; K1's launch count;
+10. rollout: ``scripts/eval_ns_rollout.py`` through the port's entry point
+   at 128² on the 40 test trajectories, 10 steps from snapshot 10 (t=1 and
+   t=10 held to three times the JAX figures), then with its pushforward
+   fine-tune (1 epoch, K=4, on the 8 training trajectories: finite losses,
+   t=10 within the JAX package's own figure after its pushforward
+   fine-tune, the peak memory), K1-K3
+   launched once per layer and rollout step, and one rollout step (K=2,
+   batch 2) card against CPU;
+11. options: ``train_navier_stokes`` with the recipe phase's flags, the
+   mixed flags and each of ``--opt.opt_state factored8``,
+   ``--opt.stochastic_rounding true`` and ``--opt.ema_decay 0.999``: one
+   graphed epoch warm-started from the published weights, then one more
+   resumed from its files, the resumed evaluation within twice the mixed
+   fine-tune's; ``optimizer.msgpack`` against the live state to the bit;
+   bf16 K1-K3 only; factored8's int8 codes, stochastic rounding's bf16
+   parameters and two replays from one state drawing other noise, the
+   EMA's printed evaluation; the graphed step's ms of each beside the mixed
+   phase's;
+12. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -252,6 +277,44 @@ MIXED_STEP_LOSS_TOL, MIXED_STEP_GRAD_TOL = 1e-2, 5e-2
 MIXED_STEP_NOISE_GRAD_TOL = 0.25
 # the saved mixed weights rebuilt and rescored: the same bf16 forwards
 MIXED_RELOAD_TOL = 1e-6
+
+# the superres phase: scripts/eval_ns_superres.py's defaults (256 pairs at
+# most, batch 8) on test trajectories solved on the card at each resolution,
+# as many as the JAX record's pairs need (BASELINE.md:930-937: 256 pairs at
+# 256², 200 at 512²; 50 pairs per trajectory)
+SUPERRES_RES, SUPERRES_TRAJ = (128, 256, 512), {256: 6, 512: 4}
+SUPERRES_PAIRS, SUPERRES_BATCH = 256, 8
+# three times the JAX figures (BASELINE.md:936-937), a reference taken on
+# another checkpoint under refit normalizers, not a target; 128² is held to
+# (c)'s bounds
+SUPERRES_BOUNDS = {256: (3 * 0.00327, 3 * 0.00341), 512: (3 * 0.00463, 3 * 0.00505)}
+# the first 8 pairs at 256², card against CPU: the eval phase's (b)
+SUPERRES_CPU_PAIRS = 8
+# the rollout phase: scripts/eval_ns_rollout.py at 128² on the 40 test
+# trajectories, from snapshot 10, 10 steps: three times the JAX figures at
+# t=1 and t=10 (BASELINE.md:939-944: 5.1e-4 and 3.34e-3)
+ROLLOUT_HORIZON, ROLLOUT_BOUNDS = 10, {1: 1.5e-3, 10: 1.0e-2}
+# the pushforward fine-tune: 1 epoch at K=4 on the 8 training trajectories.
+# The JAX package records pushforward on converged weights as a loss
+# (BASELINE.md:948-955: 2 epochs took its t=10 from 0.00334 to 0.00712, its
+# t=1 from 0.00051 to 0.00391): a fresh AdamW's first steps move every
+# weight by about lr, and the rollout falls to that noise floor whatever it
+# started from (on an H100 these weights went from 1.05e-3 to 4.03e-3 at
+# t=10). So no gain is asked: t=10 after it stays within the JAX package's
+# own figure after its fine-tune; training on wrong targets or a broken
+# feedback scores about 1
+ROLLOUT_K, PUSHFORWARD_T10_BOUND = 4, 0.00712
+# one rollout step (K=2, batch 2) card against CPU: f32 on both, the train
+# phase's bounds
+ROLLOUT_STEP_K = 2
+# the options phase: the recipe's flags, the mixed flags and each option of
+# scripts/run_round4_post.sh:26-33, one graphed epoch then one resumed
+OPTIONS = {"factored8": {"--opt.opt_state": "factored8"},
+           "stochastic_rounding": {"--opt.stochastic_rounding": "true"},
+           "ema": {"--opt.ema_decay": "0.999"}}
+# the resumed run's evaluation (after 100 steps, as many as the mixed
+# fine-tune's) within twice the mixed fine-tune's figures
+OPTIONS_EVAL_FACTOR = 2.0
 
 _T0 = time.perf_counter()
 
@@ -1318,6 +1381,401 @@ def mixed(processor, served: dict, evaluated: dict, recipe_run: dict) -> dict:
             "launches_by_dtype": by_dtype, **parts}
 
 
+def superres(processor) -> dict:
+    """(10) zero-shot super-resolution of the published weights through the
+    port's eval_ns_superres entry point, on test trajectories solved on the
+    card at 256² and 512² by the port's generate_ns_data."""
+    from neuraloperator_tpu_torch.data.datasets import navier_stokes
+    from neuraloperator_tpu_torch.config import make_config_from_cli
+    from neuraloperator_tpu_torch.scripts import eval_ns_superres, generate_ns_data
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+    from neuraloperator_tpu_torch.scripts._checkpoint_cli import load_fno
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    solver_s = {}
+    for res, n_traj in SUPERRES_TRAJ.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate_ns_data.main(["--res", str(res), "--train-traj", "0", "--test-traj",
+                               str(n_traj), "--device", "cuda"])
+        solver_s[res] = time.perf_counter() - t0
+        log(f"superres: {n_traj} test trajectories x 50 000 steps of {res}² generated on the "
+            f"card in {solver_s[res]:.2f} s")
+    argv = ["--save_dir", str(FLAGSHIP), "--save_name", CHECKPOINT, "--train_res", "128",
+            "--eval_res", f"[{','.join(map(str, SUPERRES_RES))}]", "--max_pairs",
+            str(SUPERRES_PAIRS), "--batch", str(SUPERRES_BATCH), *script_architecture()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    figures = eval_ns_superres.main(argv)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    log(f"superres: {figures} in {eval_s:.2f} s (weights loaded included); launches "
+        f"{launches}; peak device memory {peak_mib:.0f} MiB")
+    only_dtype(by_dtype, "float32")
+    n_traj = {EVAL_RES: ev.TEST_TRAJECTORIES, **SUPERRES_TRAJ}
+    pairs = {res: min(SUPERRES_PAIRS, 50 * n_traj[res]) for res in SUPERRES_RES}
+    if {res: f["pairs"] for res, f in figures.items()} != pairs:
+        raise AssertionError(f"superres scored {figures}, expected pairs {pairs}")
+    expected = {"mode_contraction": n_layers * sum(-(-n // SUPERRES_BATCH)
+                                                   for n in pairs.values()),
+                "mode_contraction_dx": 0, "mode_contraction_dw": 0}
+    if launches != expected:
+        raise AssertionError(f"superres launched {launches}, expected {expected}")
+    bounds = {128: (REL_L2_BOUND, REL_H1_BOUND), **SUPERRES_BOUNDS}
+    for res, (l2_bound, h1_bound) in bounds.items():
+        if not (figures[res]["rel_l2"] <= l2_bound and figures[res]["rel_h1"] <= h1_bound):
+            raise AssertionError(f"superres at {res}²: {figures[res]} (bounds {l2_bound}, "
+                                 f"{h1_bound})")
+    # the first pairs at 256², card against CPU
+    config = make_config_from_cli(eval_ns_superres.SRConfig, argv)
+    path = navier_stokes.DATA_ROOT / "ns_raw" / "nsforcing_traj_test_256.npy"
+    xs, ys = eval_ns_superres.load_pairs(path, SUPERRES_CPU_PAIRS)
+    t0 = time.perf_counter()
+    on_card = ev.evaluate(load_fno(config, "cuda"), processor, xs, ys, SUPERRES_BATCH, "cuda",
+                          drop_last=False)
+    on_cpu = ev.evaluate(load_fno(config, "cpu"), processor, xs, ys, SUPERRES_BATCH, "cpu",
+                         drop_last=False)
+    diff = {k: abs(on_card[k] - on_cpu[k]) / abs(on_cpu[k]) for k in ("rel_l2", "rel_h1")}
+    log(f"superres: first {SUPERRES_CPU_PAIRS} pairs at 256², card {on_card} vs CPU {on_cpu} "
+        f"in {time.perf_counter() - t0:.1f} s: relative differences {diff} (tol "
+        f"{EVAL_CPU_TOL:.0e})")
+    if not max(diff.values()) <= EVAL_CPU_TOL:
+        raise AssertionError(f"superres on the card departs from the CPU: {diff}")
+    return {"launches": launches, "launches_by_dtype": by_dtype, "figures": figures,
+            "solver_s": solver_s, "eval_s": eval_s, "peak_mib": peak_mib,
+            "rel_diff_vs_cpu": diff}
+
+
+def rollout(processor) -> dict:
+    """(11) the 10-step rollout of the published weights through the port's
+    eval_ns_rollout entry point, then its pushforward fine-tune, then one
+    rollout train step card against CPU."""
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+    from neuraloperator_tpu_torch.scripts import eval_ns_rollout
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    argv = ["--save_dir", str(FLAGSHIP), "--save_name", CHECKPOINT, "--res", str(EVAL_RES),
+            "--horizon", str(ROLLOUT_HORIZON), "--n_traj", str(ev.TEST_TRAJECTORIES),
+            "--batch", str(TRAIN_BATCH), *script_architecture()]
+    rollout_batches = -(-ev.TEST_TRAJECTORIES // TRAIN_BATCH)
+    reset_launches()
+    t0 = time.perf_counter()
+    before = eval_ns_rollout.main(argv)["rollout_l2"]
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    launches, eval_by_dtype = read_launches(), read_launches_by_dtype()
+    log(f"rollout: {ev.TEST_TRAJECTORIES} trajectories x {ROLLOUT_HORIZON} steps in "
+        f"{rollout_s:.2f} s: rel_l2 per step {before.tolist()}; launches {launches}")
+    expected = {"mode_contraction": n_layers * ROLLOUT_HORIZON * rollout_batches,
+                "mode_contraction_dx": 0, "mode_contraction_dw": 0}
+    if launches != expected:
+        raise AssertionError(f"the rollout launched {launches}, expected {expected}")
+    for t, bound in ROLLOUT_BOUNDS.items():
+        if not before[t - 1] <= bound:
+            raise AssertionError(f"rollout t={t}: {before[t - 1]} (bound {bound})")
+
+    windows = RECIPE_TRAIN_TRAJ * (50 + 1 - ROLLOUT_K)
+    steps = windows // TRAIN_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tuned = eval_ns_rollout.main([*argv, "--pushforward_epochs", "1", "--rollout_steps",
+                                  str(ROLLOUT_K), "--train_traj", str(RECIPE_TRAIN_TRAJ)])
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    metrics, after = tuned["pushforward_metrics"], tuned["pushforward_rollout_l2"]
+    step_ms = 1e3 * metrics["epoch_time"] / steps
+    log(f"rollout: pushforward fine-tune, 1 epoch of {steps} steps of K={ROLLOUT_K} at batch "
+        f"{TRAIN_BATCH} on {windows} windows, in {tune_s:.1f} s (both rollouts included): {metrics}, "
+        f"{step_ms:.2f} ms per step; rel_l2 per step after {after.tolist()}; launches "
+        f"{launches}; peak device memory {peak_mib:.0f} MiB")
+    only_dtype(by_dtype, "float32")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite pushforward losses: {metrics}")
+    if not np.array_equal(tuned["rollout_l2"], before):
+        raise AssertionError("the same rollout scored differently in two runs")
+    if not after[-1] <= PUSHFORWARD_T10_BOUND:
+        raise AssertionError(f"the pushforward fine-tune took t={ROLLOUT_HORIZON} from "
+                             f"{before[-1]} to {after[-1]} (bound {PUSHFORWARD_T10_BOUND})")
+    per_step = n_layers * ROLLOUT_K * steps
+    expected = {"mode_contraction": per_step + 2 * n_layers * ROLLOUT_HORIZON * rollout_batches,
+                "mode_contraction_dx": per_step, "mode_contraction_dw": per_step}
+    if launches != expected:
+        raise AssertionError(f"the pushforward fine-tune launched {launches}, expected "
+                             f"{expected}")
+    step = rollout_step_with_cpu(processor)
+    # both runs of the entry point; the step against the CPU is a check
+    total = {name: {dt: eval_by_dtype[name][dt] + by_dtype[name][dt]
+                    for dt in ("float32", "bfloat16")} for name in by_dtype}
+    return {"launches": {name: sum(c.values()) for name, c in total.items()},
+            "launches_by_dtype": total,
+            "rollout_l2": before.tolist(), "pushforward_rollout_l2": after.tolist(),
+            "pushforward_metrics": metrics, "pushforward_step_ms": step_ms,
+            "rollout_s": rollout_s, "pushforward_s": tune_s, "peak_mib": peak_mib, **step}
+
+
+def script_architecture() -> list:
+    """The evaluation scripts' architecture flags: the flagship's."""
+    kw = flagship_meta()["init_kwargs"]
+    return ["--n_modes", str(kw["n_modes"][0]), "--hidden_channels", str(kw["hidden_channels"]),
+            "--projection_channel_ratio", str(kw["projection_channel_ratio"])]
+
+
+def rollout_step_with_cpu(processor) -> dict:
+    """One rollout train step (K=2, batch 2) of seeded weights on two windows
+    of the training trajectories, on the card and on the CPU."""
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset, navier_stokes
+    from neuraloperator_tpu_torch.data.datasets.ns_solver import trajectories_to_windows
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.models import model_from_metadata
+    from neuraloperator_tpu_torch.training import Trainer, adamw
+
+    traj = np.load(navier_stokes.DATA_ROOT / "ns_raw" / f"nsforcing_traj_train_{EVAL_RES}.npy",
+                   mmap_mode="r")
+    x, y = trajectories_to_windows(np.array(traj[:1, :ROLLOUT_STEP_K + 2]), ROLLOUT_STEP_K)
+    x, y = x[:2], y[:2]
+    meta = flagship_meta()
+    model = model_from_metadata(meta, device="cuda",
+                                generator=torch.Generator().manual_seed(SEED + 2))
+    cpu_model = cpu_copy(model, meta)
+    results = {}
+    t0 = time.perf_counter()
+    for device, m in (("cuda", model), ("cpu", cpu_model)):
+        trainer = Trainer(model=m, n_epochs=1, data_processor=processor, device=device)
+        metrics = trainer.train(DataLoader(TensorDataset(x, y), 2), {}, adamw(1e-4),
+                                training_loss=H1Loss(d=2), rollout_steps=ROLLOUT_STEP_K)
+        results[device] = (metrics["train_err"], {n: p.grad.detach().float().cpu()
+                                                  for n, p in m.named_parameters()})
+    (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = results["cuda"], results["cpu"]
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err = {n: float((grads_gpu[n].double() - g.double()).norm() / g.double().norm())
+                for n, g in grads_cpu.items()}
+    worst = max(grad_err, key=grad_err.get)
+    log(f"rollout: one step of K={ROLLOUT_STEP_K}, batch 2, card vs CPU in "
+        f"{time.perf_counter() - t0:.1f} s: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel "
+        f"{loss_err:.2e}, tol {STEP_LOSS_TOL:.0e}); gradients rel_l2 max {grad_err[worst]:.2e} "
+        f"({worst}, tol {STEP_GRAD_TOL:.0e})")
+    if not loss_err <= STEP_LOSS_TOL:
+        raise AssertionError(f"rollout step: card and CPU losses differ: {loss_err}")
+    misses = {k: v for k, v in grad_err.items() if not v <= STEP_GRAD_TOL}
+    if misses:
+        raise AssertionError(f"rollout step: card and CPU gradients differ: {misses}")
+    return {"step_loss_rel_err": loss_err, "step_grad_rel_l2_max": grad_err[worst]}
+
+
+class Tee:
+    """A text stream that keeps what is written to it and passes it on."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def replay_ms(staged, n: int) -> float:
+    """Host-clock ms per replay of the staged step over ``n`` replays, warm."""
+    order = torch.arange(n * TRAIN_BATCH, device=staged.index.device).reshape(n, TRAIN_BATCH)
+    for i in range(n):
+        staged(order[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        staged(order[i])
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def replays_draw_new_noise(trainer) -> float:
+    """Two replays of the stochastically rounded graphed step from one saved
+    state (parameters, optimizer state, count): the share of parameter
+    elements they round apart. Raises unless some differ, each by at most
+    one bf16 ulp."""
+    staged, optimizer = trainer.staged_step, trainer.optimizer
+    params = list(trainer.model.parameters())
+    tensors = [*params, optimizer.count, optimizer.lr, optimizer.bias_correction,
+               *(t for s in optimizer.state.values() for t in s.values())]
+    saved = [t.detach().clone() for t in tensors]
+    index = torch.arange(TRAIN_BATCH, device=staged.index.device)
+    results = []
+    for _ in range(2):
+        with torch.no_grad():
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+        staged(index)
+        torch.cuda.synchronize()
+        results.append(torch.cat([p.detach().float().ravel() for p in params]))
+    first, second = results
+    apart = first != second
+    within_ulp = bool(((first - second).abs() <= first.abs() * 2.0 ** -7).all())
+    if not (bool(apart.any()) and within_ulp):
+        raise AssertionError(f"two replays from one state: {int(apart.sum())} elements apart, "
+                             f"within one ulp: {within_ulp}")
+    del saved
+    return float(apart.double().mean())
+
+
+def option_run(name: str, flags: list, mixed_final: dict) -> dict:
+    """One option of the options phase: a graphed epoch warm-started from the
+    published weights, its checks, then one more epoch resumed from its files."""
+    import ast
+    import contextlib
+
+    from neuraloperator_tpu_torch.serialization import read_msgpack
+    from neuraloperator_tpu_torch.training.training_state import read_manifest
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    steps_per_epoch = RECIPE_PAIRS // TRAIN_BATCH
+    batches_per_eval = EVAL_PAIRS // EVAL_BATCH
+    save_dir = Path(tempfile.mkdtemp(prefix=f"{name}-"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        evals: list = []
+        tee = Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            first = run_recipe_entry_point(
+                [*flags, "--opt.n_epochs", "1", "--save_dir", str(save_dir),
+                 "--warm_start_from", str(FLAGSHIP), "--warm_start_name", CHECKPOINT], evals)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches, by_dtype = read_launches(), read_launches_by_dtype()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        # the run's Trainer (an EMA run evaluates the EMA through another)
+        trainer = next(t for t, _ in evals if t.staged_step is not None)
+        optimizer = trainer.optimizer
+        out = {"first": first, "train_s": train_s, "peak_mib": peak_mib}
+        only_dtype(by_dtype, "bfloat16")
+        expected = {"mode_contraction": n_layers * (steps_per_epoch
+                                                    + len(evals) * batches_per_eval),
+                    "mode_contraction_dx": n_layers * steps_per_epoch,
+                    "mode_contraction_dw": n_layers * steps_per_epoch}
+        if launches != expected or trainer.staged_step.graph is None:
+            raise AssertionError(f"{name}: launched {launches}, expected {expected}")
+        if not all(math.isfinite(v) for v in first.values()):
+            raise AssertionError(f"{name}: non-finite metrics {first}")
+        # the saved optimizer state is the live one, and reads back into it, to the bit
+        live = flat_state(optimizer.state_dict())
+        saved = flat_state(read_msgpack(save_dir / "optimizer.msgpack"))
+        optimizer.load_state_dict(read_msgpack(save_dir / "optimizer.msgpack"))
+        reread = flat_state(optimizer.state_dict())
+        same = set(live) == set(saved) == set(reread) and all(
+            torch.equal(live[k], saved[k]) and torch.equal(live[k], reread[k]) for k in live)
+        if not same:
+            raise AssertionError(f"{name}: optimizer.msgpack does not round-trip to the bit")
+        if name == "factored8":
+            codes = {k: v for k, v in live.items() if k.endswith(".codes")}
+            if not codes or any(v.dtype != torch.int8 for v in codes.values()):
+                raise AssertionError(f"{name}: the saved state holds no int8 codes")
+            out["int8_leaves"] = len(codes)
+        if name == "stochastic_rounding":
+            dtypes = {str(p.dtype) for p in trainer.model.parameters()}
+            if dtypes != {"torch.bfloat16"}:
+                raise AssertionError(f"{name}: parameters in {dtypes}")
+            out["replays_apart_share"] = replays_draw_new_noise(trainer)
+        if name == "ema":
+            lines = [ln for ln in tee.text().splitlines() if ln.startswith("ema: ")]
+            ema = ast.literal_eval(lines[-1][len("ema: "):]) if lines else {}
+            if not (ema and all(math.isfinite(v) for v in ema.values())):
+                raise AssertionError(f"{name}: the EMA evaluation printed {lines}")
+            out["ema"] = ema
+        out["graphed_step_ms"] = replay_ms(trainer.staged_step, GRAPH_PROFILE_STEPS)
+        log(f"options ({name}): 1 epoch of {steps_per_epoch} graphed steps in {train_s:.1f} s; "
+            f"final {first}; launches {by_dtype}; optimizer.msgpack round-trips to the bit; "
+            f"graphed step {out['graphed_step_ms']:.2f} ms (host clock, {GRAPH_PROFILE_STEPS} "
+            f"warm replays); peak device memory {peak_mib:.0f} MiB; "
+            f"{ {k: v for k, v in out.items() if k in ('int8_leaves', 'replays_apart_share', 'ema')} }")
+        del trainer, optimizer, evals, live, saved, reread
+
+        resumed_evals: list = []
+        reset_launches()
+        with contextlib.redirect_stdout(Tee(sys.stdout)):
+            resumed = run_recipe_entry_point(
+                [*flags, "--opt.n_epochs", "2", "--save_dir", str(save_dir),
+                 "--resume_from_dir", str(save_dir)], resumed_evals)
+        torch.cuda.synchronize()
+        resumed_by_dtype = read_launches_by_dtype()
+        only_dtype(resumed_by_dtype, "bfloat16")
+        by_dtype = {k: {dt: n + resumed_by_dtype[k][dt] for dt, n in c.items()}
+                    for k, c in by_dtype.items()}
+        launches = {k: sum(c.values()) for k, c in by_dtype.items()}
+        expected = {k: 2 * n for k, n in expected.items()}
+        if launches != expected:
+            raise AssertionError(f"{name}: the run and its resumed one launched {launches}, "
+                                 f"expected {expected}")
+        trainer = next(t for t, _ in resumed_evals if t.staged_step is not None)
+        if not (trainer.start_epoch == 1 and int(trainer.optimizer.count) == 2 * steps_per_epoch
+                and read_manifest(save_dir)["epoch"] == 1):
+            raise AssertionError(f"{name}: the resumed run started at epoch "
+                                 f"{trainer.start_epoch} and ended at count "
+                                 f"{int(trainer.optimizer.count)}")
+        bounds = {k: OPTIONS_EVAL_FACTOR * mixed_final[k] for k in ("128_l2", "128_h1")}
+        log(f"options ({name}): resumed to epoch 2: final {resumed} (bounds {bounds}, twice "
+            f"the mixed fine-tune's)")
+        if not all(math.isfinite(v) for v in resumed.values()):
+            raise AssertionError(f"{name}: non-finite metrics after the resume {resumed}")
+        if not all(resumed[k] <= b for k, b in bounds.items()):
+            raise AssertionError(f"{name}: the resumed run scores {resumed} (bounds {bounds})")
+        out["resumed"] = resumed
+        out["launches"], out["launches_by_dtype"] = launches, by_dtype
+        return out
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+
+def flat_state(tree) -> dict:
+    """An optimizer state tree as ``{dotted name: CPU tensor}``."""
+    from neuraloperator_tpu_torch.convert import as_tensor, flatten_flax
+
+    return {k: as_tensor(v).detach().cpu() for k, v in flatten_flax(tree).items()}
+
+
+def options(mixed_run: dict) -> dict:
+    """(12) the recipes' optimizer options through train_navier_stokes with
+    the mixed flags: factored8, stochastic rounding and EMA."""
+    flags = list(RECIPE_FLAGS)
+    for flag, value in {**MIXED_FLAGS, "--eval_interval": "25"}.items():
+        if flag in flags:
+            flags[flags.index(flag) + 1] = value
+        else:
+            flags += [flag, value]
+    mixed_final = mixed_run["train"]["final"]
+    runs = {}
+    for name, option in OPTIONS.items():
+        extra = list(flags)
+        for flag, value in option.items():
+            if flag in extra:
+                extra[extra.index(flag) + 1] = value
+            else:
+                extra += [flag, value]
+        runs[name] = option_run(name, extra, mixed_final)
+    mixed_ms = mixed_run["train"]["graphed_profile"]["wall_ms"] / GRAPH_PROFILE_STEPS
+    log(f"options: graphed step ms (host clock over {GRAPH_PROFILE_STEPS} warm replays) "
+        f"{ {n: round(r['graphed_step_ms'], 3) for n, r in runs.items()} } beside the mixed "
+        f"phase's {mixed_ms:.3f} ms ({GRAPH_PROFILE_STEPS} profiled replays) and "
+        f"{mixed_run['train']['graphed_step_ms']:.3f} ms (its last epoch)")
+    by_dtype = {name: {dt: sum(r["launches_by_dtype"][name][dt] for r in runs.values())
+                       for dt in ("float32", "bfloat16")} for name in kernel_specs()}
+    return {"launches": {name: sum(c.values()) for name, c in by_dtype.items()},
+            "launches_by_dtype": by_dtype, "mixed_graphed_step_ms": mixed_ms, **runs}
+
+
 def kernel_line(variants, paths) -> list:
     """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
     with its launches summed over the paths, by path, by dtype, and by path
@@ -1395,9 +1853,14 @@ def main() -> None:
     trained = train()
     recipe_run = recipe()
     mixed_run = mixed(processor, served, evaluated, recipe_run)
+    superres_run = superres(processor)
+    rollout_run = rollout(processor)
+    options_run = options(mixed_run)
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
-                                     "recipe": recipe_run, "mixed": mixed_run})
+                                     "recipe": recipe_run, "mixed": mixed_run,
+                                     "superres": superres_run, "rollout": rollout_run,
+                                     "options": options_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
@@ -1408,7 +1871,13 @@ def main() -> None:
         f"{recipe_run['peak_mib']:.0f} MiB; mixed: eval rel_l2 {mixed_run['eval']['rel_l2']:.6e} "
         f"rel_h1 {mixed_run['eval']['rel_h1']:.6e}, graphed step "
         f"{mixed_run['train']['graphed_step_ms']:.2f} ms, peak "
-        f"{mixed_run['train']['peak_mib']:.0f} MiB")
+        f"{mixed_run['train']['peak_mib']:.0f} MiB; superres "
+        f"{ {r: (f['rel_l2'], f['rel_h1']) for r, f in superres_run['figures'].items()} }, "
+        f"solver s {superres_run['solver_s']}; rollout t=1 {rollout_run['rollout_l2'][0]:.6e} "
+        f"t=10 {rollout_run['rollout_l2'][-1]:.6e}, after pushforward "
+        f"{rollout_run['pushforward_rollout_l2'][-1]:.6e}, peak {rollout_run['peak_mib']:.0f} "
+        f"MiB; options graphed step ms "
+        f"{ {n: round(options_run[n]['graphed_step_ms'], 3) for n in OPTIONS} }")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,8 +10,9 @@ Both directions are here: flax params to a ``state_dict``
 (``convert_flax_params``) and back (``to_flax_params``), and the port's
 AdamW state to optax's state tree and back (``adamw_state_to_optax``,
 ``adamw_state_from_optax``), so a whole training state crosses between the
-packages. Trees are built with their keys sorted at every level, the order
-``jax.device_get`` leaves them in before the JAX package saves them.
+packages. Parameter trees are built with their keys sorted at every level,
+the order ``jax.device_get`` leaves them in before the JAX package saves
+them; optax's NamedTuples keep the order of their fields.
 """
 
 from typing import Any, Dict, Mapping, Tuple
@@ -120,39 +121,62 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
     return unflatten_flax({name: t.detach() for name, t in state_dict.items()})
 
 
-# optax's state of the two AdamW policies, as ``flax.serialization`` writes
-# it: the chain's tuple as {"0", "1", "2"}, each NamedTuple as a map of its
-# fields. "full" is optax.adamw: (ScaleByAdamState(count, mu, nu),
-# add_decayed_weights' empty state, ScaleByScheduleState(count)); "factored"
-# puts FactoredAdamState(count, mu, nu_row, nu_col, nu_full) first.
+# optax's state of the AdamW policies, as ``flax.serialization`` writes it:
+# the chain's tuple as {"0", "1", "2"}, each NamedTuple as a map of its
+# fields in their order. "full" is optax.adamw: (ScaleByAdamState(count, mu,
+# nu), add_decayed_weights' empty state, ScaleByScheduleState(count));
+# "factored" puts FactoredAdamState(count, mu, nu_row, nu_col, nu_full)
+# first, and under "factored8" a matrix leaf's mu is Quantized8(codes,
+# scale). with_ema wraps the whole as EmaState(inner, ema).
 _ADAM_FIELDS = {False: ("count", "mu", "nu"),
                 True: ("count", "mu", "nu_row", "nu_col", "nu_full")}
+# the port's state key -> (optax field, the leaf's suffix under the name)
+_QUANTIZED = {"mu_codes": ".codes", "mu_scale": ".scale"}
 
 
-def _port_key(field: str) -> str:
-    """The port's state key of an optax field: the factored state's
-    ``nu_full`` (the second moment of a leaf below two dims) is ``nu``."""
-    return "nu" if field == "nu_full" else field
+def _field_of(key: str, factored: bool) -> Tuple[str, str]:
+    """Where a port state key lives in optax's tree: the factored state's
+    ``nu_full`` (the second moment of a leaf below two dims) is ``nu``, and
+    an int8 first moment's codes and scale are the fields of its
+    ``Quantized8``."""
+    if key in _QUANTIZED:
+        return "mu", _QUANTIZED[key]
+    if key == "nu" and factored:
+        return "nu_full", ""
+    return key, ""
+
+
+def _mu_leaf(state: Mapping[str, torch.Tensor]):
+    if "mu_codes" in state:
+        return {"codes": state["mu_codes"], "scale": state["mu_scale"]}
+    return state["mu"]
 
 
 def adamw_state_to_optax(count: int, states: Mapping[str, Mapping[str, torch.Tensor]],
                          factored: bool) -> dict:
     """optax's state tree of the port's AdamW state.
 
-    ``states`` maps each parameter name to its state (``mu`` and ``nu``, or
-    ``mu``, ``nu_row`` and ``nu_col`` for a factored leaf of two or more
-    dims). A factored optimizer's state holds, as optax's does, f32 zeros of
-    shape () where a leaf has no such statistic (``nu_row`` and ``nu_col``
-    below two dims, ``nu_full`` from two dims up).
+    ``states`` maps each parameter name to its state (``mu`` or, for an
+    int8 first moment, ``mu_codes`` and ``mu_scale``; ``nu``, or ``nu_row``
+    and ``nu_col`` for a factored leaf of two or more dims; ``ema`` under
+    ``with_ema``). A factored optimizer's state holds, as optax's does, f32
+    zeros of shape () where a leaf has no such statistic (``nu_row`` and
+    ``nu_col`` below two dims, ``nu_full`` from two dims up).
     """
     count_leaf = np.asarray(count, dtype=np.int32)
     zero = np.zeros((), np.float32)
     first = {"count": count_leaf}
     for field in _ADAM_FIELDS[factored][1:]:
-        key = _port_key(field)
+        if field == "mu":
+            first[field] = unflatten_flax({n: _mu_leaf(s) for n, s in states.items()})
+            continue
+        key = "nu" if field == "nu_full" else field
         first[field] = unflatten_flax(
             {n: s[key] if key in s else zero for n, s in states.items()})
-    return {"0": first, "1": {}, "2": {"count": count_leaf}}
+    tree = {"0": first, "1": {}, "2": {"count": count_leaf}}
+    if any("ema" in s for s in states.values()):
+        return {"inner": tree, "ema": unflatten_flax({n: s["ema"] for n, s in states.items()})}
+    return tree
 
 
 def adamw_state_from_optax(
@@ -166,6 +190,16 @@ def adamw_state_from_optax(
     parameters, as ``flax.serialization.from_state_dict`` refuses a tree
     that does not match its template.
     """
+    with_ema = any("ema" in s for s in states.values())
+    flat: Dict[str, Dict[str, Any]] = {}
+    if set(tree) == {"inner", "ema"}:
+        if not with_ema:
+            raise ValueError("the optimizer state carries an EMA (with_ema); this optimizer "
+                             "keeps none")
+        flat["ema"] = flatten_flax(tree["ema"])
+        tree = tree["inner"]
+    elif with_ema:
+        raise ValueError(f"this optimizer keeps an EMA; the state tree holds {sorted(tree)}")
     if set(tree) != {"0", "1", "2"} or not isinstance(tree["0"], Mapping):
         raise ValueError(f"not an AdamW state tree: top-level keys {sorted(tree)}")
     first = tree["0"]
@@ -175,21 +209,21 @@ def adamw_state_from_optax(
             f"the optimizer state holds {sorted(first)}, this optimizer's policy "
             f"({'factored' if factored else 'full'}) keeps {sorted(want)}"
         )
-    flat = {field: flatten_flax(first[field]) for field in want[1:]}
-    fields = {_port_key(field): field for field in want[1:]}
+    flat.update({field: flatten_flax(first[field]) for field in want[1:]})
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, state in states.items():
         out[name] = {}
         for key, ref in state.items():
-            field = fields[key]
-            if name not in flat[field]:
-                raise ValueError(f"the optimizer state has no {field} for {name}")
-            leaf = flat[field][name]
+            field, suffix = ("ema", "") if key == "ema" else _field_of(key, factored)
+            leaf = flat[field].get(name + suffix)
+            if leaf is None:
+                raise ValueError(f"the optimizer state has no {field}{suffix} for {name}")
             if tuple(leaf.shape) != tuple(ref.shape):
-                raise ValueError(f"{field} of {name}: shape {tuple(leaf.shape)} != "
+                raise ValueError(f"{field}{suffix} of {name}: shape {tuple(leaf.shape)} != "
                                  f"{tuple(ref.shape)}")
             out[name][key] = as_tensor(leaf).to(device=ref.device, dtype=ref.dtype)
-    extra = set().union(*(flat[f] for f in flat)) - set(states)
+    known = set(states) | {name + s for name in states for s in _QUANTIZED.values()}
+    extra = set().union(*flat.values()) - known
     if extra:
         raise ValueError(f"the optimizer state has leaves of unknown parameters {sorted(extra)}")
     return int(np.asarray(first["count"])), out

@@ -1,6 +1,6 @@
 """Data processors (port of ``neuraloperator_tpu/data/transforms/data_processors.py``).
 
-``DefaultDataProcessor`` (preprocess, postprocess, state) and
+``DefaultDataProcessor`` (preprocess, postprocess, feedback, state) and
 ``load_data_processor``, which reads the ``data_processor.json`` sidecar
 saved beside a checkpoint.
 """
@@ -35,6 +35,16 @@ class DefaultDataProcessor:
         if self.out_normalizer is not None and not train:
             out = self.out_normalizer.inverse_transform(out)
         return out, sample
+
+    def feedback(self, out):
+        """An encoded-y prediction mapped to the encoded-x input space: the
+        out-normalizer inverted, then the in-normalizer applied. Rollout
+        training feeds the model its own prediction through it."""
+        if self.out_normalizer is not None:
+            out = self.out_normalizer.inverse_transform(out)
+        if self.in_normalizer is not None:
+            out = self.in_normalizer.transform(out)
+        return out
 
     def state_dict(self) -> dict:
         """JSON-serializable fitted state, as saved in the checkpoint sidecar."""

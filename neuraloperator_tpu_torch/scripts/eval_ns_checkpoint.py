@@ -42,14 +42,16 @@ SOLVER = dict(visc=1e-3, T=50.0, dt=1e-3, record_dt=1.0)
 
 @torch.inference_mode()
 def evaluate(model, processor, xs, ys, batch: int, device="cuda",
-             mixed_precision: bool = False) -> dict:
+             mixed_precision: bool = False, drop_last: bool = True) -> dict:
     """Mean relative L2 and H1 error of ``model`` on the pairs ``(xs, ys)``.
 
     ``xs`` and ``ys`` are (N, 1, n, n) float32 arrays; ``model`` sits on
     ``device``. Each batch of ``batch`` pairs is normalized by
     ``processor.preprocess(train=False)``, run, and denormalized by
     ``processor.postprocess``; its ``reduction="mean"`` losses are weighted
-    by its length. A ragged tail is dropped. With ``mixed_precision`` the
+    by its length. A ragged tail is dropped, as this script's JAX original
+    drops it, unless ``drop_last`` is False (the super-resolution
+    script keeps it). With ``mixed_precision`` the
     forward is the ``Trainer(mixed_precision=True)`` eval step's (bf16
     parameters and input, the output taken in f32). Returns ``{"pairs",
     "rel_l2", "rel_h1"}``.
@@ -58,7 +60,7 @@ def evaluate(model, processor, xs, ys, batch: int, device="cuda",
     l2, h1 = LpLoss(d=2, reduction="mean"), H1Loss(d=2, reduction="mean")
     tot_l2 = tot_h1 = torch.zeros((), dtype=torch.float64, device=device)
     n = 0
-    for i in range(0, len(xs) - batch + 1, batch):
+    for i in range(0, len(xs) - (batch - 1 if drop_last else 0), batch):
         x = torch.as_tensor(xs[i:i + batch]).to(device)
         y = torch.as_tensor(ys[i:i + batch]).to(device)
         sample = processor.preprocess({"x": x}, train=False)

@@ -10,16 +10,19 @@ and the replayed CUDA graph of the step), ``--save_dir`` with
 launch and ``--resume_from_dir`` for every relaunch, in the JAX package's
 checkpoint format. The JAX package's mixed-precision run
 (``scripts/run_round4_post.sh:23-24``) runs as well: ``--model.weight_dtype
-bfloat16 --model.fno_block_precision mixed --opt.mixed_precision true``.
-Multigrid patching, the mesh, EMA and stochastic rounding raise
-``NotImplementedError`` naming their ROADMAP item.
+bfloat16 --model.fno_block_precision mixed --opt.mixed_precision true``,
+and so do the recipes' optimizer options (``scripts/run_round4_post.sh:26-33``):
+``--opt.opt_state factored8``, ``--opt.stochastic_rounding true`` and
+``--opt.ema_decay D`` (whose run ends with an evaluation of the EMA of the
+parameters, printed as ``ema: {...}``). Multigrid patching and the mesh
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 Usage:
   python -m neuraloperator_tpu_torch.scripts.train_navier_stokes --opt.n_epochs 50 \\
       --data.n_train 20000 --data.train_resolution 128 [--device cpu]
 """
 
-import argparse
+import copy
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -35,8 +38,9 @@ from ..data.datasets import load_navier_stokes_pt
 from ..data.transforms import load_data_processor
 from ..losses import H1Loss, LpLoss
 from ..models import get_model
-from ..training import Trainer, build_optimizer, setup
+from ..training import Trainer, build_optimizer, ema_params, setup
 from ..utils import count_model_params
+from ._checkpoint_cli import split_device as _split_device
 
 
 @dataclass
@@ -89,14 +93,6 @@ class NSConfig(ConfigBase):
     normalizer_from: Optional[str] = None
 
 
-def _split_device(argv):
-    """``(device, the config's arguments)``: ``--device`` is the port's own."""
-    p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
-    p.add_argument("--device", default="cuda")
-    args, rest = p.parse_known_args(argv)
-    return args.device, rest
-
-
 def main(argv=None) -> dict:
     """Run the script on ``argv`` (``sys.argv[1:]`` when None); returns the
     final metrics."""
@@ -107,8 +103,6 @@ def main(argv=None) -> dict:
         raise not_ported("--patching.levels > 0", "the rest of losses, training and data")
     if config.distributed.use_distributed:
         raise not_ported("--distributed.use_distributed", "distribution")
-    if config.opt.ema_decay > 0:
-        raise not_ported("--opt.ema_decay", "factored8/EMA/SR")
     setup(config)
 
     train_loader, test_loaders, data_processor = load_navier_stokes_pt(
@@ -165,6 +159,21 @@ def main(argv=None) -> dict:
             else {}
         ),
     )
+    if config.opt.ema_decay > 0:
+        # a second evaluation, on the EMA of the parameters (which rides the
+        # optimizer state), as the JAX script evaluates trainer.params = the
+        # EMA: a copy of the model holds the f32 EMA tensors (the trained one
+        # keeps its storage, which the step's CUDA graph writes)
+        ema = ema_params(trainer.optimizer)
+        ema_model = copy.deepcopy(trainer.model)
+        for name, p in ema_model.named_parameters():
+            p.data = ema[name].clone()
+        evaluator = Trainer(model=ema_model, n_epochs=config.opt.n_epochs,
+                            data_processor=data_processor,
+                            mixed_precision=config.opt.mixed_precision, device=device)
+        ev = evaluator._build_eval_step({"h1": h1loss, "l2": l2loss})
+        ema_metrics = evaluator.evaluate_all(ev, test_loaders)
+        print("ema:", {k: round(float(v), 5) for k, v in ema_metrics.items()})
     if config.verbose:
         print("final:", {k: round(v, 5) for k, v in metrics.items()})
         print("params:", count_model_params(trainer.model))

@@ -3,8 +3,8 @@
 The JAX package builds optax transformations; the port builds an
 :class:`AdamWTransform`, a description of the optimizer that the
 ``Trainer`` binds to the model's parameters (:meth:`AdamWTransform.bind`),
-giving an :class:`AdamW` ``torch.optim.Optimizer``. Both state policies of
-the JAX ``adamw`` are ported in plain tensor ops with optax's order of
+giving an :class:`AdamW` ``torch.optim.Optimizer``. Every state policy of
+the JAX ``adamw`` is ported in plain tensor ops with optax's order of
 operations:
 
 * ``factored_second_moment=False``: ``optax.adamw`` (full f32 second
@@ -12,14 +12,20 @@ operations:
 * ``factored_second_moment=True``: ``scale_by_adam_factored``, the
   Adafactor-style second moment of leaves with two or more dims kept as its
   row and column means over the last two axes (f32 always), then
-  ``add_decayed_weights`` and ``scale_by_learning_rate``.
+  ``add_decayed_weights`` and ``scale_by_learning_rate``; with
+  ``mu_dtype="int8"`` the first moment of those leaves is stored as
+  blockwise int8 codes with one f32 scale per block
+  (:func:`quantize_blockwise`), the others' in bf16.
 
 The update is ``-lr(count) * (adam + weight_decay * p)``, with the
 schedule read at the step count before the increment (the first update
-uses ``lr(0)``), then cast to the parameter's dtype and scaled by the
-``Trainer``'s per-epoch factor in f32. The port keeps the JAX parameter
-layouts (``convert.py``), so "the last two axes" are the same axes in both
-packages.
+uses ``lr(0)``), then cast to the parameter's dtype
+(``cast_final_updates``) and scaled by the ``Trainer``'s per-epoch factor
+in f32. The port keeps the JAX parameter layouts (``convert.py``), so "the
+last two axes" are the same axes in both packages. Two options of the JAX
+package ride on the same optimizer: stochastic rounding of bf16 parameters
+(``step(generator=...)``, :func:`apply_updates_sr`) and an EMA of the
+parameters (:func:`with_ema`, :func:`ema_params`).
 
 The step count, the learning rate and the bias corrections live in device
 tensors and are updated by device ops inside ``step``, as optax computes
@@ -31,7 +37,8 @@ each other's ``optimizer.msgpack``.
 """
 
 import functools
-from typing import Callable, Iterable, Optional, Sequence, Union
+import warnings
+from typing import Callable, Dict, Iterable, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -71,6 +78,96 @@ def step_lr(base_lr: float, step_size: int, gamma: float = 0.5,
     return StepLRSchedule(base_lr, step_size * steps_per_epoch, gamma)
 
 
+class Quantized8(NamedTuple):
+    """A tensor as blockwise int8: ``codes`` (n_blocks, block) int8 and one
+    f32 absmax ``scale`` (n_blocks, 1) per block. The shape is not stored;
+    the matching parameter gives it."""
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+
+
+def quantize_blockwise(x: torch.Tensor, block: int = 2048) -> Quantized8:
+    """``x`` as symmetric absmax-scaled int8 blocks of ``block`` elements,
+    zero-padded, with the JAX package's order of operations (``inv =
+    where(absmax > 0, 127 / absmax, 0)`` multiplied into the block, then
+    rounded half to even), so the codes equal its codes to the bit."""
+    flat = x.float().reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    blocks = flat.reshape(-1, block)
+    absmax = blocks.abs().amax(dim=-1, keepdim=True)
+    scale = absmax / 127.0
+    inv = torch.where(absmax > 0, 127.0 / absmax, torch.zeros_like(absmax))
+    return Quantized8(codes=torch.round(blocks * inv).to(torch.int8), scale=scale)
+
+
+def dequantize_blockwise(q: Quantized8, shape) -> torch.Tensor:
+    """The f32 tensor of ``shape`` that ``q`` encodes (up to rounding)."""
+    size = 1
+    for s in shape:
+        size *= s
+    return (q.codes.float() * q.scale).reshape(-1)[:size].reshape(shape)
+
+
+def round_bf16_with_noise(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding of f32 ``x`` to bf16 given its noise: ``noise``
+    (integers in [0, 2**16), ``x``'s shape) is added to the f32 bit pattern
+    and the low 16 bits are dropped, as ``stochastic_round_to`` does with
+    ``jax.random.bits``. In int32 the add wraps as JAX's uint32 add does,
+    and the arithmetic shift differs from the logical one only in the bits
+    the cast to int16 drops."""
+    bits = x.float().contiguous().view(torch.int32) + noise.to(torch.int32)
+    return (bits >> 16).to(torch.int16).view(torch.bfloat16)
+
+
+def stochastic_round_to(dtype: torch.dtype, x: torch.Tensor,
+                        generator: torch.Generator) -> torch.Tensor:
+    """``x`` rounded stochastically to bf16: up with probability equal to the
+    discarded fraction, so ``E[sr(x)] = x``. The 16 noise bits per element
+    are drawn from ``generator`` (on ``x``'s device); their values are not
+    JAX's, whose ``jax.random`` bits torch cannot draw."""
+    if dtype != torch.bfloat16:
+        raise NotImplementedError("stochastic rounding targets bfloat16")
+    noise = torch.randint(0, 1 << 16, x.shape, generator=generator, device=x.device,
+                          dtype=torch.int32)
+    return round_bf16_with_noise(x, noise)
+
+
+_SR_WARNING = ("apply_updates_sr received bf16 updates for bf16 params — pass "
+               "cast_final_updates=False to the optimizer so stochastic rounding sees "
+               "full-precision updates")
+
+
+def _apply_update(p: torch.Tensor, u: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> None:
+    """``p`` += ``u`` in place: stochastically rounded into a bf16 ``p`` when
+    ``generator`` is given, else ``optax.apply_updates`` (the sum in the
+    promoted dtype, cast to ``p``'s)."""
+    if generator is not None and p.dtype == torch.bfloat16:
+        p.copy_(stochastic_round_to(torch.bfloat16, p.float() + u.float(), generator))
+    elif u.dtype == p.dtype:
+        p.add_(u)
+    else:
+        p.copy_((p + u).to(p.dtype))
+
+
+@torch.no_grad()
+def apply_updates_sr(params: Sequence[torch.Tensor], updates: Sequence[torch.Tensor],
+                     generator: torch.Generator) -> None:
+    """Add each update to its parameter in place, bf16 parameters through
+    stochastic rounding of the f32 sum and the others by a plain add.
+    Warns (once per call, as the JAX function does) when a bf16 parameter
+    gets a bf16 update: it was already rounded to nearest."""
+    warned = False
+    for p, u in zip(params, updates):
+        if p.dtype == torch.bfloat16 and u.dtype == torch.bfloat16 and not warned:
+            warnings.warn(_SR_WARNING, stacklevel=2)
+            warned = True
+        _apply_update(p, u if p.dtype == torch.bfloat16 else u.to(p.dtype), generator)
+
+
 def _is_factored(p: torch.Tensor) -> bool:
     return p.ndim >= 2
 
@@ -83,16 +180,21 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
 
 
 class AdamW(torch.optim.Optimizer):
-    """AdamW with optax's semantics, full or factored second moment.
+    """AdamW with optax's semantics: full, factored or factored-int8 state.
 
-    ``step(lr_scale=...)`` applies one update from the parameters'
-    ``.grad``; ``lr_scale`` (a float or an f32 0-d tensor on the
+    ``step(lr_scale=..., generator=...)`` applies one update from the
+    parameters' ``.grad``; ``lr_scale`` (a float or an f32 0-d tensor on the
     parameters' device) is the per-epoch scheduler factor the ``Trainer``
     multiplies every update by (in f32, after the cast to the parameter's
-    dtype, as the JAX ``Trainer`` does). A parameter without a gradient
-    (``.grad`` is None, as for one that does not reach the loss) takes a
-    zero gradient, as optax gives every leaf one: weight decay and the
-    decaying moments still move it.
+    dtype, as the JAX ``Trainer`` does); with a ``generator``, bf16
+    parameters take their update by stochastic rounding. A parameter
+    without a gradient (``.grad`` is None, as for one that does not reach
+    the loss) takes a zero gradient, as optax gives every leaf one: weight
+    decay and the decaying moments still move it.
+
+    ``ema_decay`` keeps an f32 EMA of the parameters in the state
+    (``with_ema``): each step folds in the parameters it is given, before
+    their update and the ``Trainer``'s ``lr_scale``, a one-step lag.
 
     ``count`` is an int32 0-d tensor on the parameters' device, and every
     parameter's state is made when the optimizer is: a step allocates no
@@ -108,8 +210,10 @@ class AdamW(torch.optim.Optimizer):
         weight_decay: float = 0.0,
         betas=(0.9, 0.999),
         eps: float = 1e-8,
-        mu_dtype: Optional[torch.dtype] = None,
+        mu_dtype=None,
         factored_second_moment: bool = False,
+        cast_final_updates: bool = True,
+        ema_decay: Optional[float] = None,
         names: Optional[Sequence[str]] = None,
     ):
         params = list(params)
@@ -118,8 +222,11 @@ class AdamW(torch.optim.Optimizer):
         defaults = dict(weight_decay=weight_decay, betas=tuple(betas), eps=eps)
         super().__init__(params, defaults)
         self.learning_rate = learning_rate
-        self.mu_dtype = mu_dtype
+        self.mu_int8 = mu_dtype == "int8"
+        self.mu_dtype = None if self.mu_int8 else mu_dtype
         self.factored = factored_second_moment
+        self.cast_final_updates = cast_final_updates
+        self.ema_decay = ema_decay
         self.names = None if names is None else list(names)
         device = params[0].device
         # optax's shared step count; the rate and the bias corrections
@@ -143,24 +250,35 @@ class AdamW(torch.optim.Optimizer):
     def _init_state(self, p: torch.Tensor) -> dict:
         # as the JAX Trainer builds the optax state from the f32-promoted
         # parameters: a bf16 parameter gets an f32 first moment unless
-        # mu_dtype says otherwise, and the second moment is f32 always
+        # mu_dtype says otherwise, the second moment is f32 always, and so
+        # is the EMA
         f32 = dict(dtype=torch.float32, device=p.device)
-        state = {"mu": torch.zeros_like(p, dtype=self.mu_dtype or torch.float32)}
+        if self.mu_int8 and _is_factored(p):
+            codes, scale = quantize_blockwise(torch.zeros(p.shape, **f32))
+            state = {"mu_codes": codes, "mu_scale": scale}
+        elif self.mu_int8:  # small leaves keep a bf16 first moment
+            state = {"mu": torch.zeros_like(p, dtype=torch.bfloat16)}
+        else:
+            state = {"mu": torch.zeros_like(p, dtype=self.mu_dtype or torch.float32)}
         if self.factored and _is_factored(p):
             state["nu_row"] = torch.zeros(p.shape[:-1], **f32)
             state["nu_col"] = torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)
         else:
             state["nu"] = torch.zeros(p.shape, **f32)
+        if self.ema_decay is not None:
+            state["ema"] = p.detach().to(torch.float32, copy=True)
         return state
 
     @torch.no_grad()
-    def step(self, closure=None, lr_scale: float = 1.0):
+    def step(self, closure=None, lr_scale: float = 1.0,
+             generator: Optional[torch.Generator] = None):
         if closure is not None:
             raise not_ported("AdamW.step(closure)", "the rest of losses, training and data")
         self._set_lr()  # the schedule sees the count before the increment
         lr = self.lr
         self.count.add_(1)
         count = self.count.float()
+        warned = False
         for group in self.param_groups:
             b1, b2 = group["betas"]
             # 1 - decay ** count in f32, with decay rounded to f32 as optax
@@ -171,31 +289,56 @@ class AdamW(torch.optim.Optimizer):
             b1c, b2c = self.bias_correction[0], self.bias_correction[1]
             for p in group["params"]:
                 g = torch.zeros_like(p) if p.grad is None else p.grad
-                u = self._adam_direction(g, self.state[p], b1, b2, b1c, b2c, group["eps"])
+                state = self.state[p]
+                u = self._adam_direction(g, state, b1, b2, b1c, b2c, group["eps"])
                 # add_decayed_weights, then scale_by_learning_rate
                 u = u + _rounded(group["weight_decay"], p.dtype) * p
                 u = -lr * u
-                # with_final_update_cast: the update takes the parameter's
-                # dtype (bf16 for bf16-stored weights) and is added in it
-                u = u.to(p.dtype)
-                p.add_((u.float() * lr_scale).to(u.dtype))
+                if self.cast_final_updates:
+                    # with_final_update_cast: the update takes the parameter's
+                    # dtype (bf16 for bf16-stored weights) and is added in it
+                    u = u.to(p.dtype)
+                u = (u.float() * lr_scale).to(u.dtype)
+                if "ema" in state:
+                    # with_ema folds in the parameters given to the update
+                    ema = state["ema"]
+                    ema.copy_(self.ema_decay * ema
+                              + _rounded(1 - self.ema_decay, p.dtype) * p)
+                if (generator is not None and not warned and p.dtype == torch.bfloat16
+                        and u.dtype == torch.bfloat16):
+                    warnings.warn(_SR_WARNING, stacklevel=2)
+                    warned = True
+                _apply_update(p, u, generator)
 
     def _adam_direction(self, g, state, b1, b2, b1c, b2c, eps) -> torch.Tensor:
         """The scaled Adam direction ``m_hat / (sqrt(v_hat) + eps)``, updating the state."""
-        mu = state["mu"]
-        # each term in its operand's dtype, its constant rounded to it: for a
-        # bf16 parameter's gradient, (1 - b1) * g is a bf16 product
-        b1_g, b1c_g = _rounded(b1, g.dtype), _rounded(1 - b1, g.dtype)
-        if self.factored:
+        if "mu_codes" in state:
+            # scale_by_adam_factored's int8 branch: the EMA in f32 from the
+            # dequantized moment; the unrounded moment feeds the update, the
+            # quantized one is stored (in place: a captured graph replays it)
+            codes, scale = state["mu_codes"], state["mu_scale"]
+            m = b1 * dequantize_blockwise(Quantized8(codes, scale), g.shape) + (1 - b1) * g.float()
+            q = quantize_blockwise(m)
+            codes.copy_(q.codes)
+            scale.copy_(q.scale)
+        elif self.mu_int8:
+            mu = state["mu"]
+            m = b1 * mu.float() + (1 - b1) * g.float()
+            mu.copy_(m)
+        elif self.factored:
             # scale_by_adam_factored stores mu in its dtype and reads it back
-            # from there, so a bf16 mu feeds the update rounded
-            mu.copy_(b1_g * mu.to(g.dtype) + b1c_g * g)
+            # from there, so a bf16 mu feeds the update rounded. Each term in
+            # its operand's dtype, its constant rounded to it: for a bf16
+            # parameter's gradient, (1 - b1) * g is a bf16 product
+            mu = state["mu"]
+            mu.copy_(_rounded(b1, g.dtype) * mu.to(g.dtype) + _rounded(1 - b1, g.dtype) * g)
             m = mu
         else:
             # optax.scale_by_adam feeds the update the unrounded moment; the
             # sum takes the promoted dtype
+            mu = state["mu"]
             mu_p = mu.to(torch.promote_types(g.dtype, mu.dtype))
-            m = b1c_g * g + _rounded(b1, mu_p.dtype) * mu_p
+            m = _rounded(1 - b1, g.dtype) * g + _rounded(b1, mu_p.dtype) * mu_p
             mu.copy_(m)
         g32 = g.float()
         if "nu" in state:
@@ -273,44 +416,40 @@ def adamw(
     """AdamW with torch's defaults; see the module docstring for the policies.
 
     ``mu_dtype`` is None (f32, the dtype of the f32-promoted parameter the
-    JAX Trainer builds the state from) or ``torch.bfloat16``.
-    Each update is cast to its parameter's dtype before it is added
-    (``with_final_update_cast``); ``cast_final_updates=False``, which the
-    JAX package sets only for stochastic rounding, raises.
+    JAX Trainer builds the state from), ``torch.bfloat16``, or ``"int8"``
+    (blockwise codes; factored path only). Each update is cast to its
+    parameter's dtype before it is added (``with_final_update_cast``)
+    unless ``cast_final_updates=False``, which stochastic rounding wants.
     """
     if max_grad_norm is not None:
         raise not_ported("adamw max_grad_norm", "the rest of losses, training and data")
-    if mu_dtype == "int8":
-        raise not_ported("adamw mu_dtype='int8' (factored8)", "factored8/EMA/SR")
-    if not cast_final_updates:
-        raise not_ported("adamw cast_final_updates=False", "factored8/EMA/SR")
-    if mu_dtype not in (None, torch.bfloat16, torch.float32):
-        raise ValueError(f"mu_dtype must be None or torch.bfloat16, got {mu_dtype!r}")
+    if mu_dtype == "int8" and not factored_second_moment:
+        raise ValueError("mu_dtype='int8' requires factored_second_moment=True "
+                         "(the blockwise-quantized mu lives in the factored kernel)")
+    if mu_dtype not in (None, torch.bfloat16, torch.float32, "int8"):
+        raise ValueError(f"mu_dtype must be None, torch.bfloat16 or 'int8', got {mu_dtype!r}")
     return AdamWTransform(
         learning_rate=learning_rate, weight_decay=weight_decay, betas=betas,
         eps=eps, mu_dtype=mu_dtype, factored_second_moment=factored_second_moment,
+        cast_final_updates=cast_final_updates,
     )
 
 
 def build_optimizer(opt_config, steps_per_epoch: int = 1) -> AdamWTransform:
     """The optimizer of an ``OptConfig``-like section (attributes
     ``learning_rate``, ``step_size``, ``gamma``, ``weight_decay``,
-    ``opt_state``): AdamW with the StepLR schedule folded in.
+    ``opt_state``, ``stochastic_rounding``, ``ema_decay``): AdamW with the
+    StepLR schedule folded in.
 
-    Policies ``"full"`` (f32 moments) and ``"factored"`` (factored second
-    moment, bf16 first moment) are ported; ``"factored8"``, EMA and
-    stochastic rounding raise.
+    Policies ``"full"`` (f32 moments), ``"factored"`` (factored second
+    moment, bf16 first moment) and ``"factored8"`` (factored second moment,
+    int8 first moment); stochastic rounding leaves the updates in f32 for
+    the rounding; ``ema_decay > 0`` wraps it in :func:`with_ema`.
     """
     policy = getattr(opt_config, "opt_state", "full")
-    if policy == "factored8":
-        raise not_ported("opt_state='factored8'", "factored8/EMA/SR")
-    if policy not in ("full", "factored"):
+    if policy not in ("full", "factored", "factored8"):
         raise ValueError(f"unknown opt.opt_state: {policy!r}")
-    if getattr(opt_config, "ema_decay", 0.0) > 0:
-        raise not_ported("opt.ema_decay", "factored8/EMA/SR")
-    if getattr(opt_config, "stochastic_rounding", False):
-        raise not_ported("opt.stochastic_rounding", "factored8/EMA/SR")
-    return adamw(
+    tx = adamw(
         step_lr(
             opt_config.learning_rate,
             opt_config.step_size,
@@ -318,9 +457,34 @@ def build_optimizer(opt_config, steps_per_epoch: int = 1) -> AdamWTransform:
             steps_per_epoch,
         ),
         weight_decay=opt_config.weight_decay,
-        factored_second_moment=policy == "factored",
-        mu_dtype={"full": None, "factored": torch.bfloat16}[policy],
+        factored_second_moment=policy != "full",
+        mu_dtype={"full": None, "factored": torch.bfloat16, "factored8": "int8"}[policy],
+        # SR applies updates with its own stochastic round and wants the
+        # full-precision update at the rounding point
+        cast_final_updates=not getattr(opt_config, "stochastic_rounding", False),
     )
+    if getattr(opt_config, "ema_decay", 0.0) > 0:
+        tx = with_ema(tx, decay=opt_config.ema_decay)
+    return tx
+
+
+def with_ema(optimizer: AdamWTransform, decay: float = 0.999) -> AdamWTransform:
+    """``optimizer`` keeping a Polyak/EMA copy of the parameters in its state:
+    ``ema <- decay * ema + (1 - decay) * params``, folded in at each step
+    from the parameters given to it (before their update and before the
+    ``Trainer``'s ``lr_scale``: a one-step lag). The EMA starts at the
+    parameters the optimizer is bound to, in f32, and rides the state, so
+    checkpoints carry it (optax's ``EmaState(inner, ema)``). Read it back
+    with :func:`ema_params`."""
+    return AdamWTransform(**optimizer.settings, ema_decay=decay)
+
+
+def ema_params(optimizer: AdamW) -> Dict[str, torch.Tensor]:
+    """The EMA of a :func:`with_ema` optimizer: ``{name: f32 tensor}`` (the
+    optimizer's own tensors)."""
+    if optimizer.ema_decay is None:
+        raise TypeError("the optimizer does not carry an EMA — build it with with_ema(...)")
+    return {name: state["ema"] for name, state in optimizer._named_states().items()}
 
 
 class StepLR:
@@ -351,6 +515,7 @@ class StepLR:
         self.factor = float(state["factor"])
 
 
-
-__all__ = ["AdamW", "AdamWTransform", "StepLR", "StepLRSchedule", "adamw", "build_optimizer",
-           "step_lr"]
+__all__ = ["AdamW", "AdamWTransform", "Quantized8", "StepLR", "StepLRSchedule", "adamw",
+           "apply_updates_sr", "build_optimizer", "dequantize_blockwise", "ema_params",
+           "quantize_blockwise", "round_bf16_with_noise", "step_lr", "stochastic_round_to",
+           "with_ema"]

@@ -14,12 +14,14 @@ optimizer keeps its step count, rate and bias corrections on the device,
 so each replay updates them itself. The first step is an eager warm-up
 (a real update, counted as a step) on a side stream: it builds the kernels,
 caches their occupancy queries, tensor maps and DFT matrices, and makes the
-optimizer's state; capture then records the step and runs nothing. On the
-CPU the same step runs eagerly. A capture or replay that fails raises: there
+optimizer's state; capture then records the step and runs nothing. A
+generator the step draws from (stochastic rounding's) is registered with the
+graph, so every replay draws fresh numbers from it instead of the captured
+ones. On the CPU the same step runs eagerly. A capture or replay that fails raises: there
 is no fallback to the eager step on the card.
 """
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 import torch
 
@@ -31,13 +33,16 @@ class StagedStep:
 
     ``step_fn(batch, lr_scale)`` is the ``Trainer``'s step (it returns the
     batch's loss); ``data`` maps each key to all the staged samples, on one
-    device; every batch holds ``batch_size`` samples.
+    device; every batch holds ``batch_size`` samples; ``generators`` are the
+    device generators the step draws random numbers from.
     """
 
-    def __init__(self, step_fn: Callable, data: Dict[str, torch.Tensor], batch_size: int):
+    def __init__(self, step_fn: Callable, data: Dict[str, torch.Tensor], batch_size: int,
+                 generators: Sequence[torch.Generator] = ()):
         device = next(iter(data.values())).device
         self.step_fn = step_fn
         self.data = data
+        self.generators = tuple(generators)
         self.index = torch.zeros(batch_size, dtype=torch.int64, device=device)
         self.lr_scale = torch.ones((), dtype=torch.float32, device=device)
         self.loss_sum = torch.zeros((), dtype=torch.float64, device=device)
@@ -68,6 +73,8 @@ class StagedStep:
         torch.cuda.current_stream(device).wait_stream(side)
 
         graph = torch.cuda.CUDAGraph()
+        for generator in self.generators:
+            graph.register_generator_state(generator)
         before = launch_counts(by_dtype=True)
         with torch.cuda.graph(graph):
             self._body()

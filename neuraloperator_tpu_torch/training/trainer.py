@@ -21,6 +21,16 @@ parameters and bf16 float inputs (:func:`half_precision_forward`), the loss
 is taken on the output in f32, and the gradients land on the f32 master
 parameters through the casts. Not ``torch.autocast``: its op lists keep
 adds, GELU and reductions in f32, which the JAX package computes in bf16.
+
+``train(rollout_steps=K)`` trains on trajectory targets ``y`` of shape
+(b, K', c, spatial...), K' >= K: the model is unrolled K steps, each step's
+output fed back through ``data_processor.feedback`` (detached between steps
+with ``pushforward=True``, full backpropagation through time without), and
+the loss is the mean of the K steps' losses. ``evaluate(mode=
+"autoregression")`` rolls the model out over such a trajectory.
+``stochastic_rounding=True`` trains bf16 master parameters, each update
+rounded stochastically from f32 with noise drawn from the Trainer's
+seeded ``sr_generator``.
 """
 
 import json
@@ -40,6 +50,15 @@ from .staged_step import StagedStep
 from .training_state import load_training_state, read_manifest, save_training_state
 
 
+def _to_half(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+
+def _half_params(model: torch.nn.Module) -> dict:
+    """The model's parameters under the half policy (differentiable casts)."""
+    return {name: _to_half(p) for name, p in model.named_parameters()}
+
+
 def half_precision_forward(model: torch.nn.Module, kwargs: dict) -> torch.Tensor:
     """``model(**kwargs)`` under the JAX ``Trainer._half_policy``.
 
@@ -48,12 +67,8 @@ def half_precision_forward(model: torch.nn.Module, kwargs: dict) -> torch.Tensor
     another dtype (the bf16 spectral weights of ``weight_dtype="bfloat16"``)
     is used as it is and gets a gradient in its own dtype.
     """
-    def to_half(t):
-        return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
-
-    params = {name: to_half(p) for name, p in model.named_parameters()}
     return torch.func.functional_call(
-        model, params, kwargs={k: to_half(v) for k, v in kwargs.items()})
+        model, _half_params(model), kwargs={k: _to_half(v) for k, v in kwargs.items()})
 
 
 def _output(model: torch.nn.Module, kwargs: dict, mixed_precision: bool) -> torch.Tensor:
@@ -67,6 +82,10 @@ def _output(model: torch.nn.Module, kwargs: dict, mixed_precision: bool) -> torc
     if mixed_precision:
         return half_precision_forward(model, kwargs).float()
     return model(**kwargs).float()
+
+
+# the seed of stochastic rounding's noise (the JAX Trainer's base key)
+SR_SEED = 0x5757
 
 
 class Trainer:
@@ -94,9 +113,15 @@ class Trainer:
             raise not_ported("Trainer wandb_log", "the rest of losses, training and data")
         if mesh is not None or use_distributed or zero_sharding:
             raise not_ported("Trainer mesh/use_distributed/zero_sharding", "distribution")
-        if stochastic_rounding:
-            raise not_ported("Trainer stochastic_rounding", "factored8/EMA/SR")
         self.device = resolve_device(device)
+        # bf16 master parameters, updated by stochastic rounding; the noise
+        # comes from one generator on the device, seeded by train() from
+        # SR_SEED and the run's first epoch and advanced every step (the JAX
+        # Trainer folds the epoch and the step into a fixed key)
+        self.stochastic_rounding = stochastic_rounding
+        self.sr_generator = None
+        if stochastic_rounding:
+            self.sr_generator = torch.Generator(device=self.device).manual_seed(SR_SEED)
         self.model = model.to(self.device)
         self.n_epochs = n_epochs
         self.mixed_precision = mixed_precision
@@ -114,11 +139,45 @@ class Trainer:
             for k, v in batch.items()
         }
 
-    def _build_train_step(self, training_loss, regularizer=None) -> Callable:
+    def _build_train_step(self, training_loss, regularizer=None, rollout_steps: int = 1,
+                          pushforward: bool = True) -> Callable:
         data_processor = self.data_processor
         model = self.model
         optimizer = self.optimizer
         mixed = self.mixed_precision
+        generator = self.sr_generator
+
+        def penalty():
+            # a penalty on the parameters, given as the flat
+            # {flax-style dotted name: tensor} dict
+            params = dict(model.named_parameters())
+            return regularizer.loss(params) if hasattr(regularizer, "loss") \
+                else regularizer(params)
+
+        def rollout_loss(sample, kwargs):
+            # the JAX Trainer's rollout branch: the half policy casts the
+            # parameters and the first inputs once; a fed-back prediction
+            # enters the next step in the dtype feedback gives it
+            x = kwargs.pop("x")
+            if mixed:
+                params = _half_params(model)
+                kwargs = {k: _to_half(v) for k, v in kwargs.items()}
+                x = _to_half(x)
+
+                def forward(x):
+                    return torch.func.functional_call(model, params, kwargs={"x": x, **kwargs})
+            else:
+                def forward(x):
+                    return model(x, **kwargs)
+            feedback = getattr(data_processor, "feedback", None)
+            losses = []
+            for j in range(rollout_steps):
+                out = forward(x)
+                losses.append(training_loss(out.float(), sample["y"][:, j]))
+                if j < rollout_steps - 1:
+                    nxt = out if feedback is None else feedback(out)
+                    x = nxt.detach() if pushforward else nxt
+            return sum(losses) / rollout_steps
 
         def loss_fn(batch):
             sample = dict(batch)
@@ -129,6 +188,9 @@ class Trainer:
             kwargs = {
                 k: v for k, v in sample.items() if k != "y" and not k.startswith("_loss_")
             }
+            if rollout_steps > 1:
+                loss = rollout_loss(sample, kwargs)
+                return loss + penalty() if regularizer is not None else loss
             out = _output(model, kwargs, mixed)
             if data_processor is not None:
                 out, sample = data_processor.postprocess(out, sample, train=True)
@@ -136,15 +198,7 @@ class Trainer:
                 loss = training_loss(out, sample["y"], ynorm_sq=sample["_loss_ynorm_sq"])
             else:
                 loss = training_loss(out, sample["y"])
-            if regularizer is not None:
-                # a penalty on the parameters, given as the flat
-                # {flax-style dotted name: tensor} dict
-                params = dict(model.named_parameters())
-                loss = loss + (
-                    regularizer.loss(params) if hasattr(regularizer, "loss")
-                    else regularizer(params)
-                )
-            return loss
+            return loss + penalty() if regularizer is not None else loss
 
         def step(batch, lr_scale) -> torch.Tensor:
             # nothing here reads the device: the staged path captures it
@@ -152,7 +206,10 @@ class Trainer:
             optimizer.zero_grad(set_to_none=True)
             loss = loss_fn(batch)
             loss.backward()
-            optimizer.step(lr_scale=lr_scale)
+            if generator is None:
+                optimizer.step(lr_scale=lr_scale)
+            else:
+                optimizer.step(lr_scale=lr_scale, generator=generator)
             return loss.detach()
 
         return step
@@ -176,7 +233,8 @@ class Trainer:
 
         return step
 
-    def _stage(self, train_loader, batch_size: int, train_step, training_loss) -> StagedStep:
+    def _stage(self, train_loader, batch_size: int, train_step, training_loss,
+               rollout_steps: int) -> StagedStep:
         """The loader's batches, in its order, as one set on the device."""
         stacked: Dict[str, list] = {}
         for batch in train_loader:
@@ -188,14 +246,16 @@ class Trainer:
             raise ValueError(f"{len(data['x'])} staged samples hold no batch of {batch_size}")
         # a loss whose relative denominator depends on the target alone
         # (H1Loss.ynorm_sq) gets it once over the staged set: each step then
-        # runs one finite-difference pass, on the difference
+        # runs one finite-difference pass, on the difference (not for a
+        # rollout, whose targets are trajectories)
         dp = self.data_processor
-        if hasattr(training_loss, "ynorm_sq") and (
+        if rollout_steps == 1 and hasattr(training_loss, "ynorm_sq") and (
                 dp is None or isinstance(dp, DefaultDataProcessor)):
             with torch.no_grad():
                 sample = dp.preprocess(dict(data), train=True) if dp is not None else data
                 data["_loss_ynorm_sq"] = training_loss.ynorm_sq(sample["y"])
-        return StagedStep(train_step, data, batch_size)
+        generators = () if self.sr_generator is None else (self.sr_generator,)
+        return StagedStep(train_step, data, batch_size, generators=generators)
 
     def _staged_epoch(self, staged: StagedStep, perm: np.ndarray, lr_scale: float,
                       epoch_scan_chunk: Optional[int]) -> float:
@@ -283,11 +343,16 @@ class Trainer:
           ``np.random.default_rng(shuffle_seed).permutation``, on the card
           as a replayed CUDA graph; ``epoch_scan_chunk`` splits an epoch
           into equal chunks (``_staged_epoch``).
+        * ``rollout_steps > 1``: each batch's ``y`` is a trajectory
+          (b, K, c, spatial...) with K >= ``rollout_steps``; the model is
+          unrolled, feeding its predictions back, with the gradient stopped
+          between steps when ``pushforward`` (one step's backward cost) or
+          taken through the whole chain when not. On the staged path the
+          trajectories are staged whole.
+        * ``stochastic_rounding`` (the Trainer's): every f32 parameter is
+          cast to bf16 before the optimizer is bound (whose state is still
+          f32), and each step rounds its updates in stochastically.
         """
-        del pushforward  # read only by rollout training
-        if rollout_steps > 1:
-            raise not_ported("Trainer.train rollout_steps > 1",
-                             "the rest of losses, training and data")
         if not hasattr(optimizer, "bind"):
             raise TypeError(
                 "optimizer must be what training.adamw or build_optimizer returns, "
@@ -304,19 +369,36 @@ class Trainer:
         first_batch = next(iter(train_loader))
         if "x" not in first_batch or "y" not in first_batch:
             raise ValueError(f"batches must hold 'x' and 'y', got keys {sorted(first_batch)}")
+        if rollout_steps > 1:
+            y0 = np.asarray(first_batch["y"])
+            if y0.ndim < 3 or y0.shape[1] < rollout_steps:
+                raise ValueError(
+                    f"rollout_steps={rollout_steps} needs trajectory targets "
+                    f"(b, K>={rollout_steps}, c, spatial...); got {y0.shape}"
+                )
+        if self.stochastic_rounding:
+            # bf16 MASTER parameters: the update phase carries no f32 copy
+            with torch.no_grad():
+                for p in self.model.parameters():
+                    if p.dtype == torch.float32:
+                        p.data = p.data.to(torch.bfloat16)
         self.optimizer = optimizer.bind(self.model.named_parameters())
         if warm_start_from is not None and resume_from_dir is None:
             self._warm_start(warm_start_from, warm_start_name, warm_start_opt)
         if resume_from_dir is not None and Path(resume_from_dir).exists():
             self._resume(resume_from_dir)
 
-        train_step = self._build_train_step(training_loss, regularizer)
+        if self.sr_generator is not None:
+            # a resumed run draws other noise than the run it resumes
+            self.sr_generator.manual_seed(SR_SEED + self.start_epoch)
+        train_step = self._build_train_step(training_loss, regularizer, rollout_steps,
+                                            pushforward)
         eval_step = self._build_eval_step(eval_losses)
         shuffle_rng = np.random.default_rng(shuffle_seed)
         self.staged_step = None
         if device_dataset:
             self.staged_step = self._stage(train_loader, len(first_batch["x"]), train_step,
-                                           training_loss)
+                                           training_loss, rollout_steps)
         saving = save_every is not None or save_best is not None
         best_metric = self._prepare_save_dir(save_dir, saving, save_best, resume_from_dir)
 
@@ -458,17 +540,62 @@ class Trainer:
         eval_losses=None,
         max_steps: Optional[int] = None,
     ) -> Dict[str, float]:
-        """Mean over samples of each loss's per-batch sum (``"sum"`` reduction)."""
-        if mode == "autoregression":
-            raise not_ported("Trainer.evaluate mode='autoregression'",
-                             "the rest of losses, training and data")
-        if mode != "single_step":
+        """Mean over samples of each loss's per-batch sum (``"sum"`` reduction).
+
+        ``mode="autoregression"`` rolls the model out over each batch's
+        trajectory ``y`` (b, T, c, spatial...) from ``x``, feeding each
+        prediction back as the next input, and scores every step with
+        ``eval_losses``: a batch's value is its per-step sums summed over
+        the steps and divided by T (``max_steps`` caps T; by default the
+        data processor's ``n_steps_rollout``, if it has one).
+        """
+        if mode not in ("single_step", "autoregression"):
             raise ValueError(f"unknown eval mode {mode!r}")
+        dp = self.data_processor
         totals: Dict[str, torch.Tensor] = {}  # float64, as loss_sum in train
         n_samples = 0
         for batch in loader:
+            if (mode == "autoregression" and dp is not None
+                    and hasattr(dp, "format_rollout_batch") and "output_fields" in batch):
+                # a trajectory batch in the_well's layout
+                batch = dp.format_rollout_batch(self._put(dict(batch)))
             bsz = len(batch["x"]) if "x" in batch else len(next(iter(batch.values())))
-            for k, v in eval_step(self._put(batch)).items():
+            if mode == "single_step":
+                vals = eval_step(self._put(batch))
+            else:
+                vals = self._eval_autoregressive(self._put(batch), eval_losses, max_steps)
+            for k, v in vals.items():
                 totals[k] = totals[k] + v if k in totals else v.double()
             n_samples += bsz
         return {f"{prefix}_{k}": float(v) / max(n_samples, 1) for k, v in totals.items()}
+
+    @torch.no_grad()
+    def _eval_autoregressive(self, batch, eval_losses, max_steps) -> Dict[str, torch.Tensor]:
+        """One batch's rollout: ``{loss: sum over steps of the step's loss / T}``
+        (float64; the sum over steps in f32, as the JAX scan's)."""
+        dp = self.data_processor
+        if max_steps is None:
+            # a the_well-style processor can carry the rollout horizon
+            max_steps = getattr(dp, "n_steps_rollout", None)
+        y = batch["y"]
+        T = y.shape[1] if max_steps is None else min(max_steps, y.shape[1])
+        names = tuple(sorted(eval_losses))
+        self.model.eval()
+        x = batch["x"]
+        per_step = []
+        for t in range(T):
+            sample = {"x": x}
+            if dp is not None:
+                sample = dp.preprocess(sample, train=False)
+            out = self.model(sample["x"])
+            if dp is not None:
+                out, _ = dp.postprocess(out, sample, train=False)
+            per_step.append(torch.stack([
+                torch.as_tensor(eval_losses[k](out, y[:, t]), dtype=torch.float32)
+                for k in names]))
+            # a the_well-style processor shifts its input window instead
+            x = dp.ar_feedback(x, out) if hasattr(dp, "ar_feedback") else out
+        self._last_rollout_T = T  # introspection for tests and metrics
+        sums = (torch.stack(per_step).sum(dim=0) if per_step
+                else torch.zeros(len(names), device=self.device))
+        return {k: sums[i].double() / max(T, 1) for i, k in enumerate(names)}

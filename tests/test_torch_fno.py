@@ -272,3 +272,19 @@ def test_unported_options_raise():
     conv = SpectralConv(2, 2, (4, 4), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         conv(torch.zeros(1, 2, 520, 8))
+
+
+@pytest.mark.parametrize("n_modes,res", [((8,), (32,)), ((4, 4, 4), (8, 9, 10))],
+                         ids=["1d", "3d"])
+def test_whole_fno_in_1d_and_3d(jax_pallas, n_modes, res):
+    """The flagship's options on a 1-D grid of 32 points and a 3-D grid of
+    8x9x10: within relative l2 2e-6 of JAX. A CPU probe of both packages
+    read 4e-7 at these shapes; over 6 input seeds at hidden 8 and 12 the
+    1-D forward reads up to 1.0e-6 (f32 sums in another order), the 3-D
+    one up to 5.0e-7."""
+    meta = _small_flagship()
+    meta["init_kwargs"]["n_modes"] = list(n_modes)
+    x = _rand(8, 2, 1, *res)
+    actual, expected = _run_both(_jax_fno(meta), model_from_metadata(meta, device="cpu"), x)
+    assert actual.shape == (2, 1, *res)
+    assert np.linalg.norm(actual - expected) / np.linalg.norm(expected) <= 2e-6

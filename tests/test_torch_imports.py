@@ -65,6 +65,9 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/data/datasets/navier_stokes.py",
         "neuraloperator_tpu_torch/scripts/generate_ns_data.py",
         "neuraloperator_tpu_torch/scripts/train_navier_stokes.py",
+        "neuraloperator_tpu_torch/scripts/eval_ns_superres.py",
+        "neuraloperator_tpu_torch/scripts/eval_ns_rollout.py",
+        "neuraloperator_tpu_torch/scripts/_checkpoint_cli.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -118,6 +121,15 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(model=model, n_epochs=1)
+    from neuraloperator_tpu_torch.scripts import eval_ns_rollout, eval_ns_superres
+
+    flagship = str(ROOT / "artifacts/ns128_v2")
+    for script in (eval_ns_superres, eval_ns_rollout):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            script.main(["--save_dir", flagship, "--save_name", "best_model_f16"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_ns_rollout.per_step_rollout_l2(model, None, np.zeros((1, 1, 8, 8), np.float32),
+                                            np.zeros((1, 1, 1, 8, 8), np.float32), 1)
     served = CompiledForward(model, torch.zeros(1, 1, 8, 8), device="cpu")
     assert served(torch.zeros(1, 1, 8, 8)).device.type == "cpu"
 
@@ -127,6 +139,8 @@ def _new_entry_points():
     from neuraloperator_tpu_torch.models import load_flagship
     from neuraloperator_tpu_torch.scripts import (
         eval_ns_checkpoint,
+        eval_ns_rollout,
+        eval_ns_superres,
         generate_ns_data,
         serve_model,
         train_navier_stokes,
@@ -148,6 +162,8 @@ def _new_entry_points():
             8, [8], 4, [4], data_root="/nonexistent", train_resolution=8),
         "generate_ns_data.main": lambda: generate_ns_data.main(["--out", "/nonexistent"]),
         "train_navier_stokes.main": lambda: train_navier_stokes.main(["--opt.n_epochs", "1"]),
+        "eval_ns_superres.main": lambda: eval_ns_superres.main(["--save_dir", str(flagship)]),
+        "eval_ns_rollout.main": lambda: eval_ns_rollout.main(["--save_dir", str(flagship)]),
     }
 
 
@@ -155,7 +171,8 @@ def _new_entry_points():
                                   "simulate_navier_stokes_2d", "make_nsforcing_split",
                                   "evaluate", "eval_ns_checkpoint.main", "serve_model.main",
                                   "solve_navier_stokes_2d", "load_navier_stokes_pt",
-                                  "generate_ns_data.main", "train_navier_stokes.main"])
+                                  "generate_ns_data.main", "train_navier_stokes.main",
+                                  "eval_ns_superres.main", "eval_ns_rollout.main"])
 def test_checkpoint_solver_and_eval_entry_points_refuse_the_cpu_fallback(no_card, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _new_entry_points()[name]()

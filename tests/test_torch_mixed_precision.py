@@ -204,6 +204,28 @@ def test_fno_under_the_half_policy_matches_jax(monkeypatch, backend, precision):
     assert _rel_l2(_np(got), _np(want)) <= (EXACT if backend == "xla" else PALLAS_TOL)
 
 
+@pytest.mark.parametrize("n_modes,res", [((8,), (32,)), ((4, 4, 4), (8, 9, 10))],
+                         ids=["1d", "3d"])
+def test_fno_under_the_half_policy_matches_jax_in_1d_and_3d(jax_xla, n_modes, res):
+    """The mixed FNO under the half policy on a 1-D grid of 32 points and a
+    3-D grid of 8x9x10, against eager JAX with the XLA contraction: equal
+    to the bit, as a CPU probe of both packages found it."""
+    meta = _meta()
+    meta["init_kwargs"].update(n_modes=list(n_modes), **MIXED)
+    jmodel = _jax_model(meta)
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 1, *res)))["params"]
+    model = model_from_metadata(meta, device="cpu")
+    model.load_state_dict(convert.convert_flax_params(params, model.state_dict(), device="cpu"))
+    x = np.random.default_rng(4).standard_normal((2, 1, *res)).astype(np.float32)
+    half_params, half_kwargs = jtrainer.Trainer._half_policy(None, params, {"x": jnp.asarray(x)})
+    want = jmodel.apply({"params": half_params}, **half_kwargs)
+    with torch.no_grad():
+        got = half_precision_forward(model, {"x": torch.from_numpy(x)})
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert tuple(got.shape) == want.shape == (2, 1, *res)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
 def test_mixed_model_on_f32_inputs_promotes_as_jax(jax_xla):
     """Without the half policy: f32 parameters and inputs around "mixed" blocks.
     The blocks return bf16, and the f32 skips and MLPs promote it back. f32

@@ -285,6 +285,21 @@ def test_graphed_staged_epoch_matches_the_eager_loop(card):
     within 1e-5 relative, all parameters together within relative l2 1e-5,
     each leaf's change within 1e-4. The launch counts are the card's: one
     per layer and step, the capture not counted."""
+    _graphed_against_the_loop("full", leaf_tol=1e-4)
+
+
+def test_graphed_factored8_epoch_matches_the_eager_loop(card):
+    """The same with the int8 first moment, whose codes and scales the
+    graph updates in their captured buffers: the loss and all parameters
+    together as above; each leaf's change within 2**-7, since a first
+    moment within 1e-7 of a code boundary may take the next code (one code
+    is at most 1/127 of its block's largest value)."""
+    trainer = _graphed_against_the_loop("factored8", leaf_tol=2.0 ** -7)
+    state = trainer.optimizer.state
+    assert any("mu_codes" in s and s["mu_codes"].any() for s in state.values())
+
+
+def _graphed_against_the_loop(opt_state: str, leaf_tol: float):
     from types import SimpleNamespace
 
     from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
@@ -294,7 +309,7 @@ def test_graphed_staged_epoch_matches_the_eager_loop(card):
     meta = json.loads(METADATA.read_text())
     meta["init_kwargs"].update(n_modes=[16, 16], hidden_channels=16, n_layers=2)
     opt = SimpleNamespace(learning_rate=1e-3, weight_decay=1e-4, step_size=50, gamma=0.5,
-                          opt_state="full")
+                          opt_state=opt_state)
     gen = np.random.default_rng(4)
     x = gen.standard_normal((40, 1, 32, 32)).astype(np.float32)
     y = (0.5 * np.roll(x, 1, axis=-1) + 0.25 * x).astype(np.float32)
@@ -326,7 +341,126 @@ def test_graphed_staged_epoch_matches_the_eager_loop(card):
     assert float((flat_got - flat_want).norm() / flat_want.norm()) <= 1e-5
     for name in got:
         step_got, step_want = got[name] - init[name].double(), want[name] - init[name].double()
-        assert float((step_got - step_want).norm() / step_want.norm()) <= 1e-4, name
+        assert float((step_got - step_want).norm() / step_want.norm()) <= leaf_tol, name
+    return trainer_g
+
+
+def test_graphed_rollout_epoch_matches_the_eager_loop(card):
+    """Rollout training (K=3, pushforward) on the staged set: trajectories
+    staged whole and the rollout step replayed as a CUDA graph, against the
+    loader loop over the same windows in the same order from the same
+    weights. The same kernels on the same inputs (no H1 denominator is
+    precomputed for a rollout): the epoch's loss within 1e-5 relative, all
+    parameters together within relative l2 1e-5; K1, K2 and K3 launched
+    once per layer and rollout step."""
+    from types import SimpleNamespace
+
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
+    from neuraloperator_tpu_torch.data.datasets.ns_solver import trajectories_to_windows
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.training import Trainer, build_optimizer
+
+    meta = json.loads(METADATA.read_text())
+    meta["init_kwargs"].update(n_modes=[16, 16], hidden_channels=16, n_layers=2)
+    opt = SimpleNamespace(learning_rate=1e-3, weight_decay=1e-4, step_size=50, gamma=0.5,
+                          opt_state="full")
+    traj = np.random.default_rng(5).standard_normal((4, 7, 32, 32)).astype(np.float32)
+    x, y = trajectories_to_windows(traj, 3)  # 16 windows of 3 steps
+    perm = np.random.default_rng(7).permutation(len(x))
+    runs = {}
+    for staged in (True, False):
+        model = model_from_metadata(meta, device="cuda",
+                                    generator=torch.Generator().manual_seed(0))
+        order = np.arange(len(x)) if staged else perm
+        trainer = Trainer(model=model, n_epochs=1, device="cuda")
+        before = tsc.launch_counts()
+        metrics = trainer.train(DataLoader(TensorDataset(x[order], y[order]), 4), {},
+                                build_optimizer(opt, 4), training_loss=H1Loss(d=2),
+                                rollout_steps=3, device_dataset=staged, shuffle_seed=7)
+        torch.cuda.synchronize()
+        after = tsc.launch_counts()
+        runs[staged] = (metrics["train_err"],
+                        torch.cat([p.detach().double().ravel() for p in model.parameters()]),
+                        {k: after[k] - before[k] for k in after}, trainer)
+    (err_g, got, launches_g, trainer_g), (err_e, want, launches_e, _) = runs[True], runs[False]
+    assert trainer_g.staged_step.graph is not None
+    assert tuple(trainer_g.staged_step.data["y"].shape) == y.shape
+    assert launches_g == launches_e == {"mode_contraction": 24, "mode_contraction_dx": 24,
+                                        "mode_contraction_dw": 24}
+    assert abs(err_g - err_e) <= 1e-5 * abs(err_e)
+    assert float((got - want).norm() / want.norm()) <= 1e-5
+
+
+def test_stochastic_rounding_draws_new_noise_at_every_replay(card):
+    """A captured stochastic rounding replays with fresh noise: its generator
+    is registered with the graph. Two replays on the same input round some
+    elements apart, each by at most one bf16 ulp of the input; a graph that
+    reused its captured offsets would give equal results."""
+    from neuraloperator_tpu_torch.training import stochastic_round_to
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = 1.0 + torch.rand(1 << 16, device="cuda", generator=gen) * 2.0 ** -6
+    out = torch.empty_like(x, dtype=torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(stochastic_round_to(torch.bfloat16, x, gen))  # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out.copy_(stochastic_round_to(torch.bfloat16, x, gen))
+    graph.replay()
+    first = out.float().clone()
+    graph.replay()
+    second = out.float()
+    ulp = 2.0 ** -7  # bf16 spacing in [1, 2)
+    assert not torch.equal(first, second)
+    assert float((first - x).abs().max()) < ulp and float((second - x).abs().max()) < ulp
+
+
+def test_a_stochastically_rounded_graphed_step_draws_new_noise(card):
+    """``Trainer(stochastic_rounding=True)`` with the staged set: the
+    graphed step replayed twice from one saved state (parameters, optimizer
+    state and count) leaves bf16 parameters that differ where the noise
+    rounded them apart, by at most one bf16 ulp, and every parameter stays
+    bf16."""
+    from types import SimpleNamespace
+
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.training import Trainer, build_optimizer
+
+    meta = json.loads(METADATA.read_text())
+    meta["init_kwargs"].update(n_modes=[16, 16], hidden_channels=16, n_layers=2)
+    model = model_from_metadata(meta, device="cuda", generator=torch.Generator().manual_seed(0))
+    x = np.random.default_rng(4).standard_normal((16, 1, 32, 32)).astype(np.float32)
+    y = (0.5 * np.roll(x, 1, axis=-1) + 0.25 * x).astype(np.float32)
+    opt = SimpleNamespace(learning_rate=1e-3, weight_decay=1e-4, step_size=50, gamma=0.5,
+                          opt_state="factored", stochastic_rounding=True)
+    trainer = Trainer(model=model, n_epochs=1, device="cuda", stochastic_rounding=True)
+    trainer.train(DataLoader(TensorDataset(x, y), 8), {}, build_optimizer(opt, 2),
+                  training_loss=H1Loss(d=2), device_dataset=True)
+    staged = trainer.staged_step
+    assert staged.graph is not None and staged.generators == (trainer.sr_generator,)
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+    optimizer = trainer.optimizer
+    tensors = [*model.parameters(), optimizer.count, optimizer.lr, optimizer.bias_correction,
+               *(t for s in optimizer.state.values() for t in s.values())]
+    saved = [t.detach().clone() for t in tensors]
+    index = torch.arange(8, device="cuda")
+    results = []
+    for _ in range(2):
+        with torch.no_grad():
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+        staged(index)
+        torch.cuda.synchronize()
+        results.append(torch.cat([p.detach().float().ravel() for p in model.parameters()]))
+    first, second = results
+    assert not torch.equal(first, second)
+    ulp = first.abs().clamp_min(1e-30) * 2.0 ** -7
+    assert bool(((first - second).abs() <= ulp).all())
 
 
 def _mixed_pair(meta_overrides, seed=0):

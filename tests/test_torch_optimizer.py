@@ -203,16 +203,21 @@ def test_parameter_outside_the_loss_moves_like_optax(policy):
 
 def test_unported_options_raise():
     base = dict(learning_rate=1e-3, step_size=10, weight_decay=0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.build_optimizer(SimpleNamespace(**base, opt_state="factored8"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.build_optimizer(SimpleNamespace(**base, opt_state="full", ema_decay=0.99))
+    # factored8, EMA and stochastic rounding are ported
+    # (tests/test_torch_optimizer_options.py holds them to the JAX package)
+    assert topt.build_optimizer(SimpleNamespace(**base, opt_state="factored8")).settings[
+        "mu_dtype"] == "int8"
+    assert topt.build_optimizer(SimpleNamespace(**base, opt_state="full", ema_decay=0.99)
+                                ).settings["ema_decay"] == 0.99
+    assert not topt.build_optimizer(SimpleNamespace(**base, opt_state="full",
+                                                    stochastic_rounding=True)
+                                    ).settings["cast_final_updates"]
     with pytest.raises(ValueError):
         topt.build_optimizer(SimpleNamespace(**base, opt_state="other"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         topt.adamw(1e-3, max_grad_norm=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.adamw(1e-3, factored_second_moment=True, mu_dtype="int8")
+    with pytest.raises(ValueError, match="factored_second_moment"):
+        topt.adamw(1e-3, mu_dtype="int8")
 
 
 @pytest.mark.parametrize("policy", ["full", "factored"])

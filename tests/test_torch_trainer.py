@@ -231,8 +231,10 @@ def test_unported_options_raise():
     _, _, model = _both()
     # mixed_precision is ported (tests/test_torch_mixed_precision.py)
     assert Trainer(model=model, n_epochs=1, device="cpu", mixed_precision=True).mixed_precision
-    for option in ({"stochastic_rounding": True},
-                   {"mesh": object()}, {"use_distributed": True}, {"zero_sharding": True},
+    # so is stochastic_rounding (tests/test_torch_optimizer_options.py)
+    assert Trainer(model=model, n_epochs=1, device="cpu",
+                   stochastic_rounding=True).sr_generator is not None
+    for option in ({"mesh": object()}, {"use_distributed": True}, {"zero_sharding": True},
                    {"wandb_log": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(model=model, n_epochs=1, device="cpu", **option)
@@ -240,13 +242,15 @@ def test_unported_options_raise():
     loader = DataLoader(TensorDataset(*_pairs(5, 2)), 2)
     opt = build_optimizer(_opt_cfg("full"))
     # device_dataset, epoch_scan_chunk, save_every/save_best, resume and warm
-    # start are ported (tests/test_torch_trainer_recipe.py); rollout training is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # start are ported (tests/test_torch_trainer_recipe.py), and so are rollout
+    # training and autoregressive evaluation (tests/test_torch_rollout.py):
+    # single-step targets are refused for a rollout, as the JAX Trainer refuses them
+    with pytest.raises(ValueError, match="rollout_steps=2 needs trajectory targets"):
         trainer.train(loader, {}, opt, rollout_steps=2)
     with pytest.raises(TypeError, match="adamw"):
         trainer.train(loader, {}, torch.optim.SGD(model.parameters(), lr=0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.evaluate(None, loader, "16", mode="autoregression")
+    with pytest.raises(ValueError, match="unknown eval mode"):
+        trainer.evaluate(None, loader, "16", mode="teacher_forcing")
 
 
 def test_regularizer_is_added_to_the_loss():
