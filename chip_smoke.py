@@ -15,7 +15,8 @@ Phases, each printed with its elapsed seconds as it goes:
    f32 and bf16), and times the kernel, the plain version and one library
    call on the device (``_timing.device_ms``: the launches queued behind a
    device-side wait, so the CUDA events do not time the host's enqueue
-   rate) beside the kernel's bound and the host's time per call; each is
+   rate) beside the kernel's bound and the host's time per call, through
+   the ``torch.library`` operator and launched directly; each is
    also checked, untimed, at the edge shapes (K1 and K2: more rows than a
    block holds, wider channels, more mode tiles than SMs, unaligned rows;
    K3: a ragged shape and slices too large for shared memory). Every check
@@ -114,7 +115,28 @@ Phases, each printed with its elapsed seconds as it goes:
    parameters and two replays from one state drawing other noise, the
    EMA's printed evaluation; the graphed step's ms of each beside the mixed
    phase's;
-12. prints one ``{"kernels": [...]}`` line, then, as the last line,
+12. quantize/export: (1) the published weights served through
+   ``CompiledForward(quantize="int8")`` on the serve phase's requests
+   (int8 codes and f32 scales resident, dequantized to bf16 in each
+   forward, K1's f32 variant): every answer against the CPU port's int8
+   answer, the distance to the f32 answers, the resident bytes, the
+   latency per bucket, and the 2000 test pairs scored within twice the JAX
+   package's int8 figures for these weights; (2) ``export_forward`` of the
+   published weights (symbolic batch) and ``serve_model --export`` with
+   ``--bf16``: each graph holds the contraction operator once per layer and
+   no einsum, and each artifact, loaded by a fresh ``python3`` process
+   that switched TF32 on, answers batches 1, 3 and 8 within 1e-6 of the
+   eager ``CompiledForward``, launching K1 once per layer and forward;
+13. remat/scan: (1) one eager step of batch 8 from seeded weights with and
+   without ``remat``: equal loss and gradients, K1 twice per layer, the
+   peak memory of each; remat's graphed steps against the loop, and its
+   step ms; (2) the published weights stacked into the scanned layout
+   against the unrolled forward, ``train_navier_stokes --model.scan_layers
+   true`` on the recipe's 400 pairs (one graphed epoch, then one more
+   resumed from its files), ``model.msgpack`` rebuilt by
+   ``models.from_checkpoint`` and rescored, the graphed scanned step's ms,
+   and one scan+remat step card against CPU;
+14. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -123,6 +145,7 @@ line. It imports nothing of JAX.
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -316,6 +339,26 @@ OPTIONS = {"factored8": {"--opt.opt_state": "factored8"},
 # fine-tune's) within twice the mixed fine-tune's figures
 OPTIONS_EVAL_FACTOR = 2.0
 
+# the quantize/export phase: int8 weight-only serving and exported forwards
+# of the published weights. Bounds of the int8 evaluation: twice the JAX
+# package's own int8 figures for these weights (f16 copy widened to f32),
+# from neuraloperator_tpu.serving.CompiledForward(quantize="int8") on the
+# CPU over the test split's first pairs that a CPU can make, the 40 pairs
+# of its trajectories' first record (w0 -> w(1), seed 10 000; the slow test
+# tests/test_torch_quantize_export.py::test_chip_smoke_int8_bounds_are_jax_figures
+# recomputes them): rel_l2 0.002264, rel_h1 0.004132 (f32: 0.001734 /
+# 0.004037 on those pairs; the int8 answers sit 2.9e-3 relative l2 from the
+# f32 ones on average). The f32 weights score 3.3e-4 on all 2000 pairs, wrong
+# weights or normalizers about 1.
+INT8_L2_BOUND, INT8_H1_BOUND = 2 * 0.002264, 2 * 0.004132
+# an artifact loaded in a fresh process with TF32 switched on, against the
+# eager forward: the same kernels on the same inputs with TF32 off in both
+# (the artifact runs its matmuls with it off); 1e-6 admits a cuBLAS kernel
+# chosen for another batch shape (the eager forward pads to its bucket)
+EXPORT_TOL, EXPORT_BATCHES = 1e-6, (1, 3, 8)
+# the remat/scan phase: seeded flagship weights at batch 8
+REMAT_STEPS = 4
+
 _T0 = time.perf_counter()
 
 
@@ -359,7 +402,7 @@ def kernel_specs():
     return {
         "mode_contraction": dict(
             fn=tsc.mode_contraction, plain=tsc.mode_contraction_reference,
-            plan=tsc.mode_contraction_plan,
+            direct=tsc._CUDA_IMPLS["fwd"], plan=tsc.mode_contraction_plan,
             library=packed_fwd, dn="_FWD", line=67, b_is_weight=True,
             a=lambda B, I, O, M: (B, I, M), b=lambda B, I, O, M: (I, O, M),
             out=lambda B, I, O, M: (B, O, M),
@@ -367,6 +410,7 @@ def kernel_specs():
         ),
         "mode_contraction_dx": dict(
             fn=tsc.mode_contraction_dx, plain=tsc.mode_contraction_dx_reference,
+            direct=tsc._CUDA_IMPLS["dx"],
             plan=lambda *ops: tsc.mode_contraction_plan(*ops, dx=True),
             library=packed_dx, dn="_BWD_X, conj_b=True", line=68, b_is_weight=True,
             a=lambda B, I, O, M: (B, O, M), b=lambda B, I, O, M: (I, O, M),
@@ -375,7 +419,7 @@ def kernel_specs():
         ),
         "mode_contraction_dw": dict(
             fn=tsc.mode_contraction_dw, plain=tsc.mode_contraction_dw_reference,
-            plan=tsc.mode_contraction_dw_plan,
+            direct=tsc._CUDA_IMPLS["dw"], plan=tsc.mode_contraction_dw_plan,
             library=packed_dw, dn="_BWD_W, conj_a=True", line=69, b_is_weight=False,
             a=lambda B, I, O, M: (B, I, M), b=lambda B, I, O, M: (B, O, M),
             out=lambda B, I, O, M: (I, O, M),
@@ -435,6 +479,8 @@ def check_kernel(name: str, batch: int, dtype: torch.dtype, channels=None, modes
                 "max_abs_err": max_abs, "path": path}
 
     ms, host_ms = device_ms(spec["fn"], sets, iters=60)
+    # the same launch without the dispatcher: what the operator's dispatch costs the host
+    direct_host_ms = device_ms(spec["direct"], sets, iters=60)[1]
     plain_ms = device_ms(spec["plain"], sets, iters=20)[0]
     library_ms = device_ms(spec["library"], [spec["pack"](s) for s in sets], iters=20)[0]
     flops = 8 * batch * I * O * M
@@ -444,12 +490,14 @@ def check_kernel(name: str, batch: int, dtype: torch.dtype, channels=None, modes
         "batch": batch, "dtype": str(dtype).replace("torch.", ""),
         "shape": {"B": batch, "I": I, "O": O, "M": M},
         "rel_l2": err, "max_abs_err": max_abs,
-        "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms": ms, "host_ms": host_ms, "direct_host_ms": direct_host_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bytes_s, ops_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
         "bytes": in_bytes + out_bytes, "flops": flops, "path": path,
     }
-    log(f"{label}: kernel {ms:.4f} ms on the device (host {host_ms:.4f} ms per call), bound {result['bound_ms']:.4f} ms "
+    log(f"{label}: kernel {ms:.4f} ms on the device (host {host_ms:.4f} ms per call through "
+        f"the operator, {direct_host_ms:.4f} ms direct), bound {result['bound_ms']:.4f} ms "
         f"({result['bound_by']}), plain {plain_ms:.4f} ms, packed einsum {library_ms:.4f} ms")
     return result
 
@@ -1589,7 +1637,9 @@ class Tee:
 
 def replay_ms(staged, n: int) -> float:
     """Host-clock ms per replay of the staged step over ``n`` replays, warm."""
-    order = torch.arange(n * TRAIN_BATCH, device=staged.index.device).reshape(n, TRAIN_BATCH)
+    staged_samples = len(staged.data["x"])
+    order = (torch.arange(n * TRAIN_BATCH, device=staged.index.device)
+             % staged_samples).reshape(n, TRAIN_BATCH)
     for i in range(n):
         staged(order[i])
     torch.cuda.synchronize()
@@ -1776,6 +1826,436 @@ def options(mixed_run: dict) -> dict:
             "launches_by_dtype": by_dtype, "mixed_graphed_step_ms": mixed_ms, **runs}
 
 
+def served_bytes(served) -> dict:
+    """The bytes a CompiledForward keeps for its weights, by kind."""
+    out = {"int8_codes": 0, "scales": 0, "unquantized": 0}
+    for codes, scale in served._params.values():
+        if scale is None:
+            out["unquantized"] += codes.numel() * codes.element_size()
+        else:
+            out["int8_codes"] += codes.numel() * codes.element_size()
+            out["scales"] += scale.numel() * scale.element_size()
+    return out
+
+
+def int8_serve(processor, served: dict) -> dict:
+    """(1) the published weights served as int8 codes and scales."""
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+    from neuraloperator_tpu_torch.serving import CompiledForward
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    requests, f32_answers = served["_requests"], served["_answers"]
+    fns = dict(preprocess_fn=processor.in_normalizer.transform,
+               postprocess_fn=processor.out_normalizer.inverse_transform)
+    example = torch.zeros(1, 1, 128, 128)
+    model, _ = load_flagship_on("cuda")
+    f32_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    srv = CompiledForward(model, example, batch_sizes=BUCKETS, quantize="int8", device="cuda",
+                          **fns)
+    scorer = CompiledForward(model, example, batch_sizes=(EVAL_BATCH,), quantize="int8",
+                             device="cuda")
+    del model
+    torch.cuda.empty_cache()
+    resident = served_bytes(srv)
+    log(f"int8 serve: resident weight bytes {resident} ({sum(resident.values()) / 1e6:.1f} MB) "
+        f"against {f32_bytes / 1e6:.1f} MB of f32 weights; first runs (s) "
+        f"{srv.compile_seconds}")
+    reset_launches()
+    answers = []
+    for x in requests:
+        answers.append(srv(x))
+        torch.cuda.synchronize()
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    only_dtype(by_dtype, "float32")
+    expected = {"mode_contraction": n_layers * len(REQUESTS),
+                "mode_contraction_dx": 0, "mode_contraction_dw": 0}
+    if launches != expected:
+        raise AssertionError(f"the int8 serve launched {launches}, expected {expected}")
+    cpu_model, _ = load_flagship_on("cpu")
+    host = CompiledForward(cpu_model, example, batch_sizes=sorted(set(REQUESTS)),
+                           quantize="int8", device="cpu", **fns)
+    del cpu_model
+    vs_cpu = [rel_l2_t(a, host(x)) for x, a in zip(requests, answers)]
+    vs_f32 = [rel_l2_t(a, f) for a, f in zip(answers, f32_answers)]
+    finite = all(bool(torch.isfinite(a).all()) for a in answers)
+    latency_ms = {b: 1e3 * srv.latency_probe(batch_size=b, iters=20) for b in BUCKETS}
+    log(f"int8 serve: {len(REQUESTS)} requests, launches {by_dtype}; rel_l2 vs the CPU port's "
+        f"int8 answers max {max(vs_cpu):.3e} (tol {SERVE_TOL:.0e}); vs the f32 answers "
+        f"{[f'{e:.3e}' for e in vs_f32]}; latency_probe ms {latency_ms}")
+    if not finite:
+        raise AssertionError("the int8 serve gave non-finite answers")
+    if not max(vs_cpu) <= SERVE_TOL:
+        raise AssertionError(f"int8 answers on the card and the CPU differ: {vs_cpu}")
+    xs, ys = ev.load_test_split(EVAL_RES, EVAL_PAIRS, device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    figures = ev.evaluate(scorer, processor, xs, ys, EVAL_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches, eval_by_dtype = read_launches(), read_launches_by_dtype()
+    only_dtype(eval_by_dtype, "float32")
+    log(f"int8 eval: {figures['pairs']} pairs at batch {EVAL_BATCH} in {eval_s:.3f} s: rel_l2 "
+        f"{figures['rel_l2']:.6e} (bound {INT8_L2_BOUND:.3e}), rel_h1 {figures['rel_h1']:.6e} "
+        f"(bound {INT8_H1_BOUND:.3e}); launches {eval_launches}")
+    if eval_launches["mode_contraction"] != n_layers * (EVAL_PAIRS // EVAL_BATCH):
+        raise AssertionError(f"the int8 evaluation launched {eval_launches}")
+    if not (figures["rel_l2"] <= INT8_L2_BOUND and figures["rel_h1"] <= INT8_H1_BOUND):
+        raise AssertionError(f"the int8 evaluation scores {figures}")
+    total = {name: {dt: by_dtype[name][dt] + eval_by_dtype[name][dt] for dt in by_dtype[name]}
+             for name in by_dtype}
+    return {"launches_by_dtype": total, "resident_bytes": resident, "f32_bytes": f32_bytes,
+            "rel_l2_vs_cpu": vs_cpu, "rel_l2_vs_f32": vs_f32, "latency_ms": latency_ms,
+            "eval": figures, "eval_s": eval_s}
+
+
+_LOAD_EXPORTED = """
+import json, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = True
+t0 = time.perf_counter()
+from neuraloperator_tpu_torch.ops import spectral_contraction as tsc
+from neuraloperator_tpu_torch.serving import load_exported
+forward = load_exported(sys.argv[1])
+load_s = time.perf_counter() - t0
+inputs = torch.load(sys.argv[2])
+tsc.reset_launch_counts()
+answers = [forward(x.cuda()).cpu() for x in inputs]
+torch.cuda.synchronize()
+torch.save(answers, sys.argv[3])
+print(json.dumps({"load_s": load_s, "launches": tsc.launch_counts(by_dtype=True),
+                  "allow_tf32": torch.backends.cuda.matmul.allow_tf32}))
+"""
+
+
+def answer_in_a_fresh_process(artifact: Path, inputs, work: Path) -> tuple:
+    """The artifact loaded and run by a new python3 process with TF32 on:
+    its answers, its report and its wall seconds."""
+    torch.save(inputs, work / "inputs.pt")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", _LOAD_EXPORTED, str(artifact), str(work / "inputs.pt"),
+         str(work / "answers.pt")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    wall_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"loading the artifact in a fresh process failed: {res.stderr[-3000:]}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    return torch.load(work / "answers.pt"), report, wall_s
+
+
+def check_artifact(label: str, artifact: Path, eager, work: Path, n_layers: int,
+                   in_std: float) -> dict:
+    """The artifact's graph, then its answers in a fresh process against ``eager``'s."""
+    graph = torch.export.load(str(artifact)).graph
+    targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
+    ops = targets.count("neuraloperator_tpu_torch.mode_contraction.default")
+    einsums = [t for t in targets if "einsum" in t]
+    if ops != n_layers or einsums:
+        raise AssertionError(f"{label}: the exported graph holds {ops} contraction operators "
+                             f"and {einsums}")
+    gen = torch.Generator().manual_seed(SEED + 20)
+    inputs = [in_std * torch.randn(n, 1, 128, 128, generator=gen) for n in EXPORT_BATCHES]
+    want = [eager(x).cpu() for x in inputs]
+    answers, report, wall_s = answer_in_a_fresh_process(artifact, inputs, work)
+    errs = [rel_l2_t(a, w) for a, w in zip(answers, want)]
+    k1 = report["launches"]["mode_contraction"]
+    log(f"{label}: graph holds {ops} contraction operators and no einsum; a fresh process "
+        f"(TF32 on: {report['allow_tf32']}) loaded it in {report['load_s']:.2f} s ({wall_s:.1f} s "
+        f"with its start) and answered batches {EXPORT_BATCHES}: rel_l2 vs eager {errs} (tol "
+        f"{EXPORT_TOL:.0e}); K1 launches {k1}")
+    if not (report["allow_tf32"] and max(errs) <= EXPORT_TOL):
+        raise AssertionError(f"{label}: the loaded artifact departs from eager: {errs}")
+    expected = {"float32": n_layers * len(EXPORT_BATCHES), "bfloat16": 0}
+    if k1 != expected or any(sum(c.values()) for n, c in report["launches"].items()
+                             if n != "mode_contraction"):
+        raise AssertionError(f"{label}: the fresh process launched {report['launches']}")
+    return {"operators": ops, "rel_l2_vs_eager": errs, "load_s": report["load_s"],
+            "process_s": wall_s, "launches_by_dtype": report["launches"]}
+
+
+def export_phase(processor) -> dict:
+    """(2) export_forward of the published weights and serve_model --export
+    --bf16, each loaded in a fresh process."""
+    from neuraloperator_tpu_torch.scripts import serve_model
+    from neuraloperator_tpu_torch.serving import CompiledForward, export_forward
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    in_std = float(processor.in_normalizer.std.ravel()[0])
+    fns = dict(preprocess_fn=processor.in_normalizer.transform,
+               postprocess_fn=processor.out_normalizer.inverse_transform)
+    example = torch.zeros(1, 1, 128, 128)
+    out = {}
+    work = Path(tempfile.mkdtemp(prefix="export-"))
+    try:
+        model, _ = load_flagship_on("cuda")
+        artifact = work / "fno.pt2"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = export_forward(model, example, path=artifact, **fns)
+        export_s = time.perf_counter() - t0
+        log(f"export: export_forward (symbolic batch) of the published weights: "
+            f"{len(blob) / 1e6:.1f} MB in {export_s:.2f} s")
+        eager = CompiledForward(model, example, batch_sizes=EXPORT_BATCHES, device="cuda", **fns)
+        del blob, model
+        out["f32"] = {"mb": artifact.stat().st_size / 1e6, "export_s": export_s,
+                      **check_artifact("export", artifact, eager, work, n_layers, in_std)}
+        del eager
+        # serve_model --export --bf16 on the published checkpoint, under its names
+        ckpt = work / "ckpt"
+        ckpt.mkdir()
+        for name in (f"{CHECKPOINT}.msgpack", "data_processor.json", "manifest.json"):
+            (ckpt / name).symlink_to(FLAGSHIP / name)
+        shutil.copy(FLAGSHIP / "model_metadata.json", ckpt / f"{CHECKPOINT}_metadata.json")
+        bf16_artifact = work / "fno_bf16.pt2"
+        t0 = time.perf_counter()
+        result = serve_model.main(["--ckpt_dir", str(ckpt), "--name", CHECKPOINT, "--shape",
+                                   "[1,128,128]", "--buckets", "[1,8]", "--bf16", "true",
+                                   "--probe_iters", "5", "--export", str(bf16_artifact),
+                                   "--device", "cuda"])
+        script_s = time.perf_counter() - t0
+        model, _ = load_flagship_on("cuda")
+        eager = CompiledForward(model, example, batch_sizes=EXPORT_BATCHES, device="cuda",
+                                param_dtype=torch.bfloat16, **fns)
+        del model
+        out["bf16"] = {"mb": result["export_mb"], "script_s": script_s,
+                       "latency_ms": result["latency_ms"],
+                       **check_artifact("serve_model --export --bf16", bf16_artifact, eager,
+                                        work, n_layers, in_std)}
+        log(f"export: artifact MB f32 {out['f32']['mb']:.1f}, bf16 {out['bf16']['mb']:.1f}")
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def quantize_export(processor, served: dict) -> dict:
+    """(12) int8 serving and exported forwards; the launches of the int8
+    serve and evaluation, and those the fresh processes counted running the
+    two artifacts."""
+    parts = {"int8": int8_serve(processor, served), "export": export_phase(processor)}
+    counted = [parts["int8"], parts["export"]["f32"], parts["export"]["bf16"]]
+    by_dtype = {name: {dt: sum(c["launches_by_dtype"][name][dt] for c in counted)
+                       for dt in ("float32", "bfloat16")} for name in kernel_specs()}
+    return {"launches": {name: sum(c.values()) for name, c in by_dtype.items()},
+            "launches_by_dtype": by_dtype, **parts}
+
+
+def train_step_launches(model, processor, x, y) -> tuple:
+    """One Trainer step on the card: (loss, grads, launches by dtype, peak MiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss, grads = one_step(model, processor, x, y, "cuda")
+    torch.cuda.synchronize()
+    return loss, grads, read_launches_by_dtype(), torch.cuda.max_memory_allocated() / 2**20
+
+
+def graphed_vs_loop(meta, processor, x, y) -> dict:
+    """Two staged epochs as replayed CUDA graphs against the loader loop over
+    the same batches, from the same seeded weights; the graphed step's ms."""
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.models import model_from_metadata
+    from neuraloperator_tpu_torch.training import Trainer, build_optimizer
+
+    n = len(x)
+    shuffle = np.random.default_rng(GRAPH_SEED)
+    orders = [shuffle.permutation(n) for _ in range(GRAPH_EPOCHS)]
+    runs = {}
+    for staged in (True, False):
+        model = model_from_metadata(meta, device="cuda",
+                                    generator=torch.Generator().manual_seed(SEED + 4))
+        if staged:
+            loader = DataLoader(TensorDataset(x, y), TRAIN_BATCH)
+        else:
+            ynorm = runs[True][1].staged_step.data["_loss_ynorm_sq"].cpu().numpy()
+            loader = EpochOrders(x, y, [orders[0], *orders], TRAIN_BATCH, _loss_ynorm_sq=ynorm)
+        trainer = Trainer(model=model, n_epochs=GRAPH_EPOCHS, data_processor=processor,
+                          device="cuda")
+        metrics = trainer.train(loader, {}, build_optimizer(OPT, n // TRAIN_BATCH),
+                                training_loss=H1Loss(d=2), device_dataset=staged,
+                                shuffle_seed=GRAPH_SEED)
+        torch.cuda.synchronize()
+        runs[staged] = (metrics, trainer)
+    (graphed, g_trainer), (eager, e_trainer) = runs[True], runs[False]
+    loss_err = abs(graphed["train_err"] - eager["train_err"]) / abs(eager["train_err"])
+    want = dict(e_trainer.model.named_parameters())
+    param_err = {name: rel_l2_t(p, want[name]) for name, p in g_trainer.model.named_parameters()}
+    worst = max(param_err, key=param_err.get)
+    if not (g_trainer.staged_step.graph is not None and loss_err <= GRAPH_TOL
+            and param_err[worst] <= GRAPH_TOL):
+        raise AssertionError(f"the graphed steps depart from the loop: loss {loss_err}, "
+                             f"{worst} {param_err[worst]}")
+    return {"loss_rel_err": loss_err, "param_rel_l2_max": param_err[worst],
+            "step_ms": replay_ms(g_trainer.staged_step, GRAPH_PROFILE_STEPS),
+            "launches_per_replay": g_trainer.staged_step._launches_per_replay}
+
+
+def remat_phase(processor, recipe_step_ms: float) -> dict:
+    """(1) one eager step with and without remat from the same seeded
+    weights, then remat's graphed steps against the loop."""
+    from neuraloperator_tpu_torch.models import model_from_metadata
+
+    meta = flagship_meta()
+    n_layers = meta["init_kwargs"]["n_layers"]
+    in_std = float(processor.in_normalizer.std.ravel()[0])
+    x, y = make_pairs(REMAT_STEPS * TRAIN_BATCH, in_std, SEED + 5)
+    steps = {}
+    for remat in (False, True):
+        meta["init_kwargs"]["remat"] = remat
+        model = model_from_metadata(meta, device="cuda",
+                                    generator=torch.Generator().manual_seed(SEED + 4))
+        steps[remat] = train_step_launches(model, processor, x[:TRAIN_BATCH], y[:TRAIN_BATCH])
+        del model
+    (loss, grads, plain_launches, plain_peak), (r_loss, r_grads, launches, peak) = \
+        steps[False], steps[True]
+    diff = {n: float((r_grads[n] - g).abs().max()) for n, g in grads.items()}
+    equal = r_loss == loss and not any(diff.values())
+    log(f"remat: one step of batch {TRAIN_BATCH} from the same seeded weights: loss {r_loss:.8f} "
+        f"vs {loss:.8f}, gradients equal to the bit: {equal} (max |diff| {max(diff.values())}); "
+        f"launches {launches} vs {plain_launches}; peak device memory {peak:.0f} MiB vs "
+        f"{plain_peak:.0f} MiB")
+    if not equal:
+        raise AssertionError(f"remat changed the step: loss {r_loss} vs {loss}, {diff}")
+    want = {"mode_contraction": {"float32": 2 * n_layers, "bfloat16": 0},
+            "mode_contraction_dx": {"float32": n_layers, "bfloat16": 0},
+            "mode_contraction_dw": {"float32": n_layers, "bfloat16": 0}}
+    if launches != want or plain_launches["mode_contraction"]["float32"] != n_layers:
+        raise AssertionError(f"remat's step launched {launches} (plain {plain_launches})")
+    meta["init_kwargs"]["remat"] = True
+    graph = graphed_vs_loop(meta, processor, x, y)
+    log(f"remat: {GRAPH_EPOCHS} graphed epochs vs the loop: loss rel {graph['loss_rel_err']:.2e}, "
+        f"parameters rel_l2 max {graph['param_rel_l2_max']:.2e} (tol {GRAPH_TOL:.0e}); launches "
+        f"per replay {graph['launches_per_replay']}; graphed step {graph['step_ms']:.2f} ms "
+        f"(host clock, {GRAPH_PROFILE_STEPS} warm replays) beside the recipe's "
+        f"{recipe_step_ms:.2f} ms")
+    if graph["launches_per_replay"]["mode_contraction"]["float32"] != 2 * n_layers:
+        raise AssertionError(f"remat's replay launches {graph['launches_per_replay']}")
+    return {"launches_by_dtype": launches, "plain_launches_by_dtype": plain_launches,
+            "peak_mib": peak, "plain_peak_mib": plain_peak, "graph": graph}
+
+
+def stack_layers(state: dict, n_layers: int) -> dict:
+    """An unrolled FNO's state_dict in the scanned layout, stacked in numpy."""
+    stacked = {k: v for k, v in state.items() if not k.startswith("fno_blocks.")}
+    for sub in ("conv", "fno_skip", "channel_mlp_skip", "channel_mlp"):
+        keys = {k.split(".", 2)[2] for k in state if k.startswith(f"fno_blocks.{sub}_0.")}
+        for key in keys:
+            stacked[f"fno_blocks.layers.{sub}.{key}"] = torch.from_numpy(np.stack(
+                [state[f"fno_blocks.{sub}_{i}.{key}"].cpu().numpy() for i in range(n_layers)]))
+    return stacked
+
+
+def scan_phase(processor, recipe_step_ms: float) -> dict:
+    """(2) the published weights stacked into the scanned layout, the scanned
+    recipe through train_navier_stokes with a resume, its saved weights
+    rebuilt, and one scan+remat step card against CPU."""
+    from neuraloperator_tpu_torch.data.transforms import load_data_processor
+    from neuraloperator_tpu_torch.models import from_checkpoint, model_from_metadata
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+    from neuraloperator_tpu_torch.training.training_state import load_training_state, read_manifest
+
+    meta = flagship_meta()
+    n_layers = meta["init_kwargs"]["n_layers"]
+    model, _ = load_flagship_on("cuda")
+    scan_meta = flagship_meta()
+    scan_meta["init_kwargs"]["scan_layers"] = True
+    scanned = model_from_metadata(scan_meta, device="meta").to_empty(device="cuda")
+    scanned.load_state_dict(stack_layers(model.state_dict(), n_layers))
+    xs, _ = ev.load_test_split(EVAL_RES, TRAIN_BATCH, device="cuda")
+    x = processor.in_normalizer.transform(torch.from_numpy(xs).cuda())
+    with torch.no_grad():
+        fwd_err = rel_l2_t(scanned.eval()(x), model.eval()(x))
+    log(f"scan: the published weights stacked into the scanned layout: forward of "
+        f"{TRAIN_BATCH} test inputs vs the unrolled model rel_l2 {fwd_err:.3e} (tol 1e-6)")
+    if not fwd_err <= 1e-6:
+        raise AssertionError(f"the scanned forward departs from the unrolled one: {fwd_err}")
+    del model, scanned
+
+    steps_per_epoch = RECIPE_PAIRS // TRAIN_BATCH
+    batches_per_eval = EVAL_PAIRS // EVAL_BATCH
+    flags = [*RECIPE_FLAGS, "--model.scan_layers", "true"]
+    save_dir = Path(tempfile.mkdtemp(prefix="scan-"))
+    try:
+        reset_launches()
+        evals: list = []
+        t0 = time.perf_counter()
+        first = run_recipe_entry_point(
+            [*flags, "--opt.n_epochs", "1", "--save_dir", str(save_dir)], evals)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        count_saved = saved_count(save_dir)
+        del evals
+        resumed_evals: list = []
+        resumed = run_recipe_entry_point(
+            [*flags, "--opt.n_epochs", "2", "--save_dir", str(save_dir), "--resume_from_dir",
+             str(save_dir)], resumed_evals)
+        torch.cuda.synchronize()
+        launches, by_dtype = read_launches(), read_launches_by_dtype()
+        trainer = resumed_evals[-1][0]
+        log(f"scan: train_navier_stokes --model.scan_layers true, 1 epoch of {steps_per_epoch} "
+            f"graphed steps in {first_s:.1f} s: {first}; resumed to epoch 2: {resumed}; saved "
+            f"optimizer count {count_saved} -> {saved_count(save_dir)}; launches {launches}")
+        if not (trainer.start_epoch == 1 and count_saved == steps_per_epoch
+                and int(trainer.optimizer.count) == 2 * steps_per_epoch == saved_count(save_dir)
+                and read_manifest(save_dir)["epoch"] == 1):
+            raise AssertionError(f"the scanned run resumed at epoch {trainer.start_epoch} from "
+                                 f"count {count_saved}")
+        if not all(math.isfinite(v) for v in (*first.values(), *resumed.values())):
+            raise AssertionError(f"non-finite scanned metrics {first}, {resumed}")
+        only_dtype(by_dtype, "float32")
+        n_steps, n_evals = 2 * steps_per_epoch, 2
+        expected = {"mode_contraction": n_layers * (n_steps + n_evals * batches_per_eval),
+                    "mode_contraction_dx": n_layers * n_steps,
+                    "mode_contraction_dw": n_layers * n_steps}
+        if launches != expected or trainer.staged_step.graph is None:
+            raise AssertionError(f"the scanned run launched {launches}, expected {expected}")
+        step_ms = replay_ms(trainer.staged_step, GRAPH_PROFILE_STEPS)
+        log(f"scan: graphed step {step_ms:.2f} ms (host clock, {GRAPH_PROFILE_STEPS} warm "
+            f"replays) beside the recipe's {recipe_step_ms:.2f} ms")
+        del trainer, resumed_evals
+        rebuilt = from_checkpoint(save_dir, "model", device="cuda")
+        if not rebuilt.scan_layers:
+            raise AssertionError("model_metadata.json did not rebuild a scanned model")
+        rebuilt.load_state_dict(load_training_state(save_dir, "model", rebuilt.state_dict(),
+                                                    device="cuda")[0])
+        xs, ys = ev.load_test_split(EVAL_RES, EVAL_PAIRS, device="cuda")
+        rescored = ev.evaluate(rebuilt.eval(), load_data_processor(save_dir), xs, ys,
+                               EVAL_BATCH, device="cuda")
+        reload_err = abs(rescored["rel_l2"] - resumed["128_l2"]) / resumed["128_l2"]
+        log(f"scan: model.msgpack rebuilt by from_checkpoint scores {rescored} against the "
+            f"run's 128_l2 {resumed['128_l2']:.6e}: relative difference {reload_err:.2e} "
+            f"(tol {BEST_RELOAD_TOL:.0e})")
+        if not reload_err <= BEST_RELOAD_TOL:
+            raise AssertionError(f"the rebuilt scanned weights score {rescored}")
+        del rebuilt
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    step_meta = flagship_meta()
+    step_meta["init_kwargs"].update(scan_layers=True, remat=True)
+    model = model_from_metadata(step_meta, device="cuda",
+                                generator=torch.Generator().manual_seed(SEED + 2))
+    in_std = float(processor.in_normalizer.std.ravel()[0])
+    step = compare_step_with_cpu(model, step_meta, processor, *make_pairs(2, in_std, SEED + 3))
+    return {"launches": launches, "launches_by_dtype": by_dtype, "forward_rel_l2": fwd_err,
+            "first": first, "resumed": resumed, "graphed_step_ms": step_ms,
+            "reload_rel_diff": reload_err, **step}
+
+
+def remat_scan(processor, recipe_run: dict) -> dict:
+    """(13) remat and scan_layers at full width; the scanned recipe's
+    launches are the path's (remat's are counted per step)."""
+    recipe_ms = recipe_run["step_ms"]["graphed"]
+    remat = remat_phase(processor, recipe_ms)
+    scan = scan_phase(processor, recipe_ms)
+    by_dtype = {name: {dt: scan["launches_by_dtype"][name][dt]
+                       + remat["launches_by_dtype"][name][dt] for dt in ("float32", "bfloat16")}
+                for name in kernel_specs()}
+    return {"launches": {name: sum(c.values()) for name, c in by_dtype.items()},
+            "launches_by_dtype": by_dtype, "remat": remat, "scan": scan}
+
+
 def kernel_line(variants, paths) -> list:
     """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
     with its launches summed over the paths, by path, by dtype, and by path
@@ -1856,11 +2336,14 @@ def main() -> None:
     superres_run = superres(processor)
     rollout_run = rollout(processor)
     options_run = options(mixed_run)
+    quantize_run = quantize_export(processor, served)
+    remat_scan_run = remat_scan(processor, recipe_run)
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
                                      "recipe": recipe_run, "mixed": mixed_run,
                                      "superres": superres_run, "rollout": rollout_run,
-                                     "options": options_run})
+                                     "options": options_run, "quantize_export": quantize_run,
+                                     "remat_scan": remat_scan_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
@@ -1877,7 +2360,14 @@ def main() -> None:
         f"t=10 {rollout_run['rollout_l2'][-1]:.6e}, after pushforward "
         f"{rollout_run['pushforward_rollout_l2'][-1]:.6e}, peak {rollout_run['peak_mib']:.0f} "
         f"MiB; options graphed step ms "
-        f"{ {n: round(options_run[n]['graphed_step_ms'], 3) for n in OPTIONS} }")
+        f"{ {n: round(options_run[n]['graphed_step_ms'], 3) for n in OPTIONS} }; int8 eval "
+        f"rel_l2 {quantize_run['int8']['eval']['rel_l2']:.6e}, served latency ms "
+        f"{quantize_run['int8']['latency_ms']}; artifacts MB f32 "
+        f"{quantize_run['export']['f32']['mb']:.1f} bf16 {quantize_run['export']['bf16']['mb']:.1f}; "
+        f"remat step peak {remat_scan_run['remat']['peak_mib']:.0f} MiB vs "
+        f"{remat_scan_run['remat']['plain_peak_mib']:.0f}, graphed remat step "
+        f"{remat_scan_run['remat']['graph']['step_ms']:.2f} ms, graphed scan step "
+        f"{remat_scan_run['scan']['graphed_step_ms']:.2f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

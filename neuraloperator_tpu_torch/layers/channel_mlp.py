@@ -5,7 +5,6 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from .._common import not_ported
 from . import _init
 
 
@@ -26,13 +25,32 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return nn.functional.gelu(x, approximate="none")
 
 
+def dropout(x: torch.Tensor, rate: float, deterministic: bool = True,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``x`` itself when ``deterministic`` or at rate 0,
+    zeros at rate 1, else each element kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)`` in ``x``'s dtype. The keep mask is drawn
+    from ``generator`` (on ``x``'s device; torch's default one when None):
+    its values are not JAX's, whose ``jax.random`` bits torch cannot draw."""
+    if rate == 0.0 or deterministic:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class ChannelMLP(nn.Module):
     """Channels-first pointwise MLP: (b, c, d1..dN) -> (b, out, d1..dN).
 
     Parameters ``w{i}`` of shape ``(out, in)`` (flax ``lecun_normal``) and
     ``b{i}`` of shape ``(out,)`` (zeros), as in the JAX module. Each layer
     computes in the promoted dtype of its input and weight, as the JAX
-    einsum does: bf16 on bf16, f32 when either is f32.
+    einsum does: bf16 on bf16, f32 when either is f32. With ``dropout`` > 0
+    each layer's output goes through :func:`dropout`, which is inert unless
+    ``forward`` is called with ``deterministic=False``, as in the JAX module
+    (whose callers in the package never pass it: there dropout never fires).
     """
 
     def __init__(
@@ -48,8 +66,7 @@ class ChannelMLP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if dropout:
-            raise not_ported("ChannelMLP dropout", "dropout, scan_layers and remat")
+        self.dropout = dropout
         self.out_channels = out_channels or in_channels
         hidden = hidden_channels or in_channels
         self.n_layers = n_layers
@@ -60,7 +77,8 @@ class ChannelMLP(nn.Module):
             setattr(self, f"w{i}", _init.lecun_normal((d_out, d_in), device, generator))
             setattr(self, f"b{i}", _init.constant((d_out,), 0.0, device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, _, *spatial = x.shape
         h = x.reshape(b, x.shape[1], -1)
         for i in range(self.n_layers):
@@ -69,4 +87,6 @@ class ChannelMLP(nn.Module):
             h = torch.matmul(w.to(dtype), h.to(dtype)) + getattr(self, f"b{i}")[:, None]
             if i < self.n_layers - 1:
                 h = self.non_linearity(h)
+            if self.dropout > 0.0:
+                h = dropout(h, self.dropout, deterministic, generator)
         return h.reshape(b, self.out_channels, *spatial)

@@ -1,8 +1,11 @@
 """Fourier Neural Operator (port of ``neuraloperator_tpu/models/fno.py``).
 
 Grid embedding -> lifting ChannelMLP -> ``n_layers`` Fourier layers ->
-projection ChannelMLP, with the layers unrolled. The constructor takes the
-JAX module's fields, so a ``model_metadata.json`` builds either.
+projection ChannelMLP. The layers are unrolled (``FNOBlocks``), or, with
+``scan_layers``, one layer over stacked parameters (``ScanFNOBlocks``);
+``remat`` recomputes each layer's activations in the backward. The
+constructor takes the JAX module's fields, so a ``model_metadata.json``
+builds either.
 """
 
 from typing import Callable, Optional, Sequence
@@ -14,6 +17,7 @@ from .._common import not_ported, resolve_device
 from ..layers.channel_mlp import ChannelMLP, gelu
 from ..layers.embeddings import GridEmbeddingND
 from ..layers.fno_block import FNOBlocks
+from ..layers.scan_fno_block import ScanFNOBlocks, run_layer
 from ..layers.spectral_convolution import SpectralConv
 from .base_model import register_model
 
@@ -70,14 +74,34 @@ class FNO(nn.Module):
     ):
         super().__init__()
         device = resolve_device(device)
-        if scan_layers or remat:
-            raise not_ported("FNO scan_layers/remat", "dropout, scan_layers and remat")
+        if scan_layers:
+            unsupported = {
+                "norm": norm is not None,
+                "preactivation": preactivation,
+                "stabilizer": stabilizer is not None,
+                "resolution_scaling_factor": resolution_scaling_factor is not None,
+                "complex_data": complex_data,
+                "factorization": factorization is not None,
+                "separable": separable,
+                "conv_bias_kernel>1": conv_bias_kernel != 1,
+                "use_channel_mlp=False": not use_channel_mlp,
+                "fno_skip=None": fno_skip is None,
+                "channel_mlp_skip=None": channel_mlp_skip is None,
+            }
+            bad = [k for k, v in unsupported.items() if v]
+            if bad:
+                raise ValueError(
+                    f"scan_layers=True does not support: {', '.join(bad)}; "
+                    "use the unrolled FNOBlocks path"
+                )
         if complex_data:
             raise not_ported("FNO complex_data=True", "the other families")
         if domain_padding is not None and domain_padding != 0:
             raise not_ported("FNO domain_padding", "the other families")
         n_modes = tuple(int(m) for m in n_modes)
         self.n_layers = n_layers
+        self.scan_layers = scan_layers
+        self.remat = remat
         if positional_embedding == "grid":
             self.embedding = GridEmbeddingND(in_channels, dim=len(n_modes))
         elif positional_embedding is None:
@@ -96,38 +120,56 @@ class FNO(nn.Module):
             device=device,
             generator=generator,
         )
-        self.fno_blocks = FNOBlocks(
-            hidden_channels,
-            hidden_channels,
-            n_modes,
-            resolution_scaling_factor=resolution_scaling_factor,
-            n_layers=n_layers,
-            max_n_modes=max_n_modes,
-            fno_block_precision=fno_block_precision,
-            use_channel_mlp=use_channel_mlp,
-            channel_mlp_dropout=channel_mlp_dropout,
-            channel_mlp_expansion=channel_mlp_expansion,
-            non_linearity=non_linearity,
-            stabilizer=stabilizer,
-            norm=norm,
-            norm_groups=norm_groups,
-            preactivation=preactivation,
-            fno_skip=fno_skip,
-            conv_bias_kernel=conv_bias_kernel,
-            channel_mlp_skip=channel_mlp_skip,
-            complex_data=complex_data,
-            separable=separable,
-            factorization=factorization,
-            rank=rank,
-            conv_module=conv_module,
-            fixed_rank_modes=fixed_rank_modes,
-            implementation=implementation,
-            decomposition_kwargs=decomposition_kwargs,
-            enforce_hermitian_symmetry=enforce_hermitian_symmetry,
-            weight_dtype=weight_dtype,
-            device=device,
-            generator=generator,
-        )
+        if scan_layers:
+            # the JAX _ScanLayer builds its layers with these fields alone
+            self.fno_blocks = ScanFNOBlocks(
+                hidden_channels,
+                hidden_channels,
+                n_modes,
+                n_layers=n_layers,
+                fno_skip=fno_skip,
+                channel_mlp_skip=channel_mlp_skip,
+                channel_mlp_expansion=channel_mlp_expansion,
+                non_linearity=non_linearity,
+                max_n_modes=max_n_modes,
+                weight_dtype=weight_dtype,
+                remat=remat,
+                device=device,
+                generator=generator,
+            )
+        else:
+            self.fno_blocks = FNOBlocks(
+                hidden_channels,
+                hidden_channels,
+                n_modes,
+                resolution_scaling_factor=resolution_scaling_factor,
+                n_layers=n_layers,
+                max_n_modes=max_n_modes,
+                fno_block_precision=fno_block_precision,
+                use_channel_mlp=use_channel_mlp,
+                channel_mlp_dropout=channel_mlp_dropout,
+                channel_mlp_expansion=channel_mlp_expansion,
+                non_linearity=non_linearity,
+                stabilizer=stabilizer,
+                norm=norm,
+                norm_groups=norm_groups,
+                preactivation=preactivation,
+                fno_skip=fno_skip,
+                conv_bias_kernel=conv_bias_kernel,
+                channel_mlp_skip=channel_mlp_skip,
+                complex_data=complex_data,
+                separable=separable,
+                factorization=factorization,
+                rank=rank,
+                conv_module=conv_module,
+                fixed_rank_modes=fixed_rank_modes,
+                implementation=implementation,
+                decomposition_kwargs=decomposition_kwargs,
+                enforce_hermitian_symmetry=enforce_hermitian_symmetry,
+                weight_dtype=weight_dtype,
+                device=device,
+                generator=generator,
+            )
         self.projection = ChannelMLP(
             hidden_channels,
             out_channels=out_channels,
@@ -138,10 +180,23 @@ class FNO(nn.Module):
             generator=generator,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, output_shape=None, n_modes=None) -> torch.Tensor:
+        """``output_shape`` and ``n_modes`` (the JAX per-call overrides) must be None."""
+        if output_shape is not None or n_modes is not None:
+            if self.scan_layers:
+                raise ValueError("scan_layers=True does not support per-call output_shape "
+                                 "or n_modes overrides")
+            raise not_ported("FNO per-call output_shape/n_modes", "the other families")
         if self.embedding is not None:
             x = self.embedding(x)
         x = self.lifting(x)
-        for i in range(self.n_layers):
-            x = self.fno_blocks(x, i)
+        if self.scan_layers:
+            x = self.fno_blocks(x)
+        elif self.remat:
+            params = dict(self.fno_blocks.named_parameters())
+            for i in range(self.n_layers):
+                x = run_layer(self.fno_blocks, params, x, (i,), remat=True)
+        else:
+            for i in range(self.n_layers):
+                x = self.fno_blocks(x, i)
         return self.projection(x)

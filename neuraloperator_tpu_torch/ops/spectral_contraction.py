@@ -14,13 +14,24 @@ numbers:
   ``dw[i, o, m] = sum_b conj(x[b, i, m]) * g[b, o, m]``.
 
 The TPU kernel's operands were transposed to mode-major blocks around the
-call; here they are not. Each wrapper launches ``csrc/spectral_contraction.cu``
-for CUDA tensors (counting the launch in ``<wrapper>.launches``, and by the
-operands' dtype in ``<wrapper>.launches_by_dtype``) and runs
-its plain version (``*_reference``) for CPU tensors. All three are bound by
-the bytes of their weight-sized operand or result (see the source's note);
-:func:`mode_contraction_plan` and :func:`mode_contraction_dw_plan` report
-how the launchers run a shape.
+call; here they are not. Each contraction is an operator of the
+``neuraloperator_tpu_torch`` ``torch.library`` namespace
+(``torch.ops.neuraloperator_tpu_torch.mode_contraction``, ``_dx``, ``_dw``),
+so that PyTorch's tracers see it as one node: ``torch.export`` records it
+(and an exported program launches the kernel where it runs on the card),
+and ``torch.utils.checkpoint`` and CUDA-graph capture call it like any op.
+Its CUDA implementation launches ``csrc/spectral_contraction.cu`` (counting
+the launch in ``<wrapper>.launches``, and by the operands' dtype in
+``<wrapper>.launches_by_dtype``), its CPU implementation runs the plain
+version (``*_reference``), and its fake implementation gives the output
+shapes, a symbolic batch included, to a tracer (a meta tensor outside one is
+refused, as a device without a kernel). The operators are registered with
+the low-level ``Library`` API (``torch.library.custom_op`` would add a
+Python layer to every call). The wrappers (:func:`mode_contraction`, ...)
+call the operators. All three kernels are
+bound by the bytes of their weight-sized operand or result (see the
+source's note); :func:`mode_contraction_plan` and
+:func:`mode_contraction_dw_plan` report how the launchers run a shape.
 The kernels take f32 or bf16 operands of one dtype and return f32.
 
 :class:`ModeContraction` is the differentiable contraction: K1 forward,
@@ -32,6 +43,7 @@ import functools
 from typing import Dict, Mapping, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from .. import _native
 
@@ -39,14 +51,15 @@ Parts = Tuple[torch.Tensor, torch.Tensor]
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_ENTRY_POINTS = ("nop_mode_contraction", "nop_mode_contraction_dx",
-                 "nop_mode_contraction_dw")
+# the kernels' C entry points by kind of contraction
+_ENTRY = {"fwd": "nop_mode_contraction", "dx": "nop_mode_contraction_dx",
+          "dw": "nop_mode_contraction_dw"}
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _native.load_library("spectral_contraction")
-    for name in _ENTRY_POINTS:
+    for name in _ENTRY.values():
         for suffix in _KERNEL_DTYPES.values():
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = _ARGTYPES
@@ -148,8 +161,7 @@ def _launch(kind: str, a: Parts, b: Parts, out_shape, dims) -> Parts:
     out_r = torch.empty(out_shape, dtype=torch.float32, device=dev)
     out_i = torch.empty_like(out_r)
     lib = _library()
-    entry = {"fwd": "nop_mode_contraction", "dx": "nop_mode_contraction_dx",
-             "dw": "nop_mode_contraction_dw"}[kind]
+    entry = _ENTRY[kind]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"{entry}_{suffix}")(
@@ -164,40 +176,74 @@ def _launch(kind: str, a: Parts, b: Parts, out_shape, dims) -> Parts:
     return out_r, out_i
 
 
+# each kind's result shape and its operator (and wrapper, which keeps the counts)
+_OUT_SHAPE = {"fwd": lambda B, I, O, M: (B, O, M), "dx": lambda B, I, O, M: (B, I, M),
+              "dw": lambda B, I, O, M: (I, O, M)}
+_OP_NAMES = {"fwd": "mode_contraction", "dx": "mode_contraction_dx", "dw": "mode_contraction_dw"}
+_SCHEMA = "(Tensor a_re, Tensor a_im, Tensor b_re, Tensor b_im) -> (Tensor, Tensor)"
+_LIB = torch.library.Library("neuraloperator_tpu_torch", "DEF")
+
+
+def _cuda_impl(kind: str):
+    def run(ar, ai, br, bi) -> Parts:
+        B, I, O, M = _shapes(kind, (ar, ai), (br, bi))
+        out = _launch(kind, (ar, ai), (br, bi), _OUT_SHAPE[kind](B, I, O, M), (B, I, O, M))
+        _count(globals()[_OP_NAMES[kind]], ar.dtype)
+        return out
+    return run
+
+
+def _cpu_impl(kind: str, plain):
+    def run(ar, ai, br, bi) -> Parts:
+        _shapes(kind, (ar, ai), (br, bi))
+        return plain(ar, ai, br, bi)
+    return run
+
+
+def _fake_impl(kind: str):
+    def run(ar, ai, br, bi) -> Parts:
+        if not isinstance(ar, FakeTensor):
+            raise ValueError(f"no kernel for device {ar.device}")
+        shape = _OUT_SHAPE[kind](*_shapes(kind, (ar, ai), (br, bi)))
+        return (ar.new_empty(shape, dtype=torch.float32),
+                ar.new_empty(shape, dtype=torch.float32))
+    return run
+
+
+# the CUDA implementations, callable without the dispatcher (the kernels
+# phase of chip_smoke.py times both routes)
+_CUDA_IMPLS = {kind: _cuda_impl(kind) for kind in _OP_NAMES}
+for _kind, _plain in (("fwd", mode_contraction_reference), ("dx", mode_contraction_dx_reference),
+                      ("dw", mode_contraction_dw_reference)):
+    _name = _OP_NAMES[_kind]
+    _LIB.define(_name + _SCHEMA)
+    _LIB.impl(_name, _CUDA_IMPLS[_kind], "CUDA")
+    _LIB.impl(_name, _cpu_impl(_kind, _plain), "CPU")
+    torch.library.register_fake(f"neuraloperator_tpu_torch::{_name}", _fake_impl(_kind), lib=_LIB)
+_OPS = {kind: getattr(torch.ops.neuraloperator_tpu_torch, name).default
+        for kind, name in _OP_NAMES.items()}
+
+
 def mode_contraction(xr, xi, wr, wi) -> Parts:
     """K1: x (B, I, M), w (I, O, M) -> f32 (B, O, M) parts.
 
-    On CUDA tensors this launches the kernel (and counts the launch in
+    The operator ``neuraloperator_tpu_torch::mode_contraction``: on CUDA
+    tensors it launches the kernel (and counts the launch in
     ``mode_contraction.launches``); on CPU tensors it runs the plain
     version. The kernel needs contiguous f32 or bf16 operands of one
     dtype on one card, and raises on anything else.
     """
-    B, I, O, M = _shapes("fwd", (xr, xi), (wr, wi))
-    if xr.device.type == "cpu":
-        return mode_contraction_reference(xr, xi, wr, wi)
-    out = _launch("fwd", (xr, xi), (wr, wi), (B, O, M), (B, I, O, M))
-    _count(mode_contraction, xr.dtype)
-    return out
+    return _OPS["fwd"](xr, xi, wr, wi)
 
 
 def mode_contraction_dx(gr, gi, wr, wi) -> Parts:
     """K2: g (B, O, M), w (I, O, M) -> f32 dx (B, I, M) parts; as :func:`mode_contraction`."""
-    B, I, O, M = _shapes("dx", (gr, gi), (wr, wi))
-    if gr.device.type == "cpu":
-        return mode_contraction_dx_reference(gr, gi, wr, wi)
-    out = _launch("dx", (gr, gi), (wr, wi), (B, I, M), (B, I, O, M))
-    _count(mode_contraction_dx, gr.dtype)
-    return out
+    return _OPS["dx"](gr, gi, wr, wi)
 
 
 def mode_contraction_dw(xr, xi, gr, gi) -> Parts:
     """K3: x (B, I, M), g (B, O, M) -> f32 dw (I, O, M) parts; as :func:`mode_contraction`."""
-    B, I, O, M = _shapes("dw", (xr, xi), (gr, gi))
-    if xr.device.type == "cpu":
-        return mode_contraction_dw_reference(xr, xi, gr, gi)
-    out = _launch("dw", (xr, xi), (gr, gi), (I, O, M), (B, I, O, M))
-    _count(mode_contraction_dw, xr.dtype)
-    return out
+    return _OPS["dw"](xr, xi, gr, gi)
 
 
 def _plan(kind: str, a: Parts, b: Parts) -> Tuple[int, ...]:

@@ -13,6 +13,9 @@ Usage:
       --name model --shape '[1,128,128]' [--buckets '[1,8]'] [--bf16 true] [--device cuda]
 
 ``--bf16 true`` serves the weights cast to bfloat16 (requests stay f32).
+``--export PATH`` also writes the served forward (its weights, bf16 under
+``--bf16``, and the saved normalizers baked in, the batch symbolic) as a
+``torch.export`` artifact that ``serving.load_exported`` runs.
 """
 
 import argparse
@@ -21,10 +24,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .._common import not_ported, resolve_device
+from .._common import resolve_device
 from ..data.transforms import load_data_processor
 from ..models import from_checkpoint, load_checkpoint
-from ..serving import CompiledForward
+from ..serving import CompiledForward, export_forward
 from ..training import load_training_state
 
 
@@ -52,8 +55,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    if args.export:
-        raise not_ported("serve_model --export", "quantize/export")
     device = resolve_device(args.device)
     ckpt = Path(args.ckpt_dir)
     model = from_checkpoint(ckpt, args.name, device="meta").to_empty(device=device)
@@ -91,8 +92,15 @@ def main(argv=None) -> dict:
     out = srv(torch.from_numpy(np.random.RandomState(0).randn(n, *args.shape).astype(np.float32)))
     finite = bool(torch.isfinite(out).all())
     print(f"request({n}) -> {tuple(out.shape)}, finite: {finite}")
-    return {"compile_seconds": srv.compile_seconds, "latency_ms": latency_ms,
-            "ragged": {"batch": n, "shape": tuple(out.shape), "finite": finite}}
+    result = {"compile_seconds": srv.compile_seconds, "latency_ms": latency_ms,
+              "ragged": {"batch": n, "shape": tuple(out.shape), "finite": finite}}
+    if args.export:
+        # the served copy: its weights are the probed endpoint's (bf16 under --bf16)
+        blob = export_forward(srv.model, example, path=args.export,
+                              preprocess_fn=pre, postprocess_fn=post)
+        print(f"exported {len(blob) / 1e6:.1f} MB -> {args.export}")
+        result["export_mb"] = len(blob) / 1e6
+    return result
 
 
 if __name__ == "__main__":

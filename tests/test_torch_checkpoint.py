@@ -191,21 +191,22 @@ def test_serve_model_serves_both_layouts(saved, name, capsys):
 
 @pytest.mark.parametrize("flag,what", [("--bf16", "mixed/half precision"),
                                        ("--export", "quantize/export")])
-def test_serve_model_options_not_ported(saved, flag, what, capsys):
-    """``--export`` raises naming its ROADMAP item; ``--bf16`` (mixed/half
-    precision) is ported and serves the weights in bf16."""
+def test_serve_model_options_not_ported(saved, flag, what, capsys, tmp_path):
+    """Both options are ported: ``--bf16`` (mixed/half precision) serves the
+    weights in bf16, ``--export PATH`` (quantize/export) also writes the
+    served forward as an artifact (``tests/test_torch_quantize_export.py``
+    holds it to JAX and to the served answers)."""
     from neuraloperator_tpu_torch.scripts import serve_model
 
-    argv = ["--ckpt_dir", str(saved[0]), "--name", "best_model", flag, "true",
+    value = str(tmp_path / "served.pt2") if flag == "--export" else "true"
+    argv = ["--ckpt_dir", str(saved[0]), "--name", "best_model", flag, value,
             "--shape", "[1,16,16]", "--buckets", "[1,2]", "--probe_iters", "1",
             "--device", "cpu"]
-    if flag == "--bf16":
-        result = serve_model.main(argv)
-        assert "bucket 2:" in capsys.readouterr().out
-        assert result["ragged"] == {"batch": 1, "shape": (1, 1, 16, 16), "finite": True}
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        serve_model.main(argv)
+    result = serve_model.main(argv)
+    assert "bucket 2:" in capsys.readouterr().out
+    assert result["ragged"] == {"batch": 1, "shape": (1, 1, 16, 16), "finite": True}
+    if flag == "--export":
+        assert result["export_mb"] == (tmp_path / "served.pt2").stat().st_size / 1e6
 
 
 @pytest.mark.slow

@@ -265,8 +265,9 @@ def test_unported_options_raise():
         SpectralConv(4, 4, (4, 4), fno_block_precision="quarter", device="cpu")
     with pytest.raises(ValueError, match="weight_dtype"):
         SpectralConv(4, 4, (4, 4), weight_dtype="float16", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FNO((4, 4), 1, 1, 4, scan_layers=True, device="cpu")
+    # scan_layers is ported (tests/test_torch_scan_remat.py holds it to JAX)
+    scanned = FNO((4, 4), 1, 1, 4, scan_layers=True, device="cpu")
+    assert scanned(torch.zeros(1, 1, 8, 8)).shape == (1, 1, 8, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FNO((4, 4), 1, 1, 4, factorization="tucker", device="cpu")
     conv = SpectralConv(2, 2, (4, 4), device="cpu")

@@ -68,6 +68,8 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/scripts/eval_ns_superres.py",
         "neuraloperator_tpu_torch/scripts/eval_ns_rollout.py",
         "neuraloperator_tpu_torch/scripts/_checkpoint_cli.py",
+        "neuraloperator_tpu_torch/layers/scan_fno_block.py",
+        "neuraloperator_tpu_torch/layers/channel_mlp.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()

@@ -299,7 +299,7 @@ def test_graphed_factored8_epoch_matches_the_eager_loop(card):
     assert any("mu_codes" in s and s["mu_codes"].any() for s in state.values())
 
 
-def _graphed_against_the_loop(opt_state: str, leaf_tol: float):
+def _graphed_against_the_loop(opt_state: str, leaf_tol: float, **overrides):
     from types import SimpleNamespace
 
     from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
@@ -307,7 +307,7 @@ def _graphed_against_the_loop(opt_state: str, leaf_tol: float):
     from neuraloperator_tpu_torch.training import Trainer, build_optimizer
 
     meta = json.loads(METADATA.read_text())
-    meta["init_kwargs"].update(n_modes=[16, 16], hidden_channels=16, n_layers=2)
+    meta["init_kwargs"].update(n_modes=[16, 16], hidden_channels=16, n_layers=2, **overrides)
     opt = SimpleNamespace(learning_rate=1e-3, weight_decay=1e-4, step_size=50, gamma=0.5,
                           opt_state=opt_state)
     gen = np.random.default_rng(4)
@@ -333,7 +333,8 @@ def _graphed_against_the_loop(opt_state: str, leaf_tol: float):
     (err_g, got, launches_g, trainer_g), (err_e, want, launches_e, _) = runs[True], runs[False]
     assert trainer_g.staged_step.graph is not None
     assert int(trainer_g.optimizer.count) == 5
-    assert launches_g == launches_e == {"mode_contraction": 10, "mode_contraction_dx": 10,
+    k1 = 20 if overrides.get("remat") else 10  # remat runs each forward twice
+    assert launches_g == launches_e == {"mode_contraction": k1, "mode_contraction_dx": 10,
                                         "mode_contraction_dw": 10}
     assert abs(err_g - err_e) <= 1e-5 * abs(err_e)
     flat_got = torch.cat([got[k].ravel() for k in sorted(got)])
@@ -343,6 +344,105 @@ def _graphed_against_the_loop(opt_state: str, leaf_tol: float):
         step_got, step_want = got[name] - init[name].double(), want[name] - init[name].double()
         assert float((step_got - step_want).norm() / step_want.norm()) <= leaf_tol, name
     return trainer_g
+
+
+def test_graphed_scanned_epoch_matches_the_eager_loop(card):
+    """The same with a scanned remat model: its layers run on slices of the
+    stacked parameters through ``functional_call``, each a checkpoint
+    recomputed in the backward, inside the capture (no RNG state is saved:
+    the forward draws none). K1 runs twice per layer and step."""
+    _graphed_against_the_loop("full", leaf_tol=1e-4, scan_layers=True, remat=True)
+
+
+def _small_pair(**overrides):
+    meta = json.loads(METADATA.read_text())
+    meta["init_kwargs"].update(n_modes=[16, 16], hidden_channels=16, n_layers=2, **overrides)
+    model = model_from_metadata(meta, device="cuda", generator=torch.Generator().manual_seed(0))
+    cpu_model = model_from_metadata(meta, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return model, cpu_model
+
+
+def test_int8_serving_launches_and_matches_the_cpu(card):
+    """``CompiledForward(quantize="int8")`` on the card keeps int8 codes
+    there, launches K1's f32 variant once per spectral layer and request,
+    and answers as on the CPU (relative l2 <= 1e-5: the same dequantized
+    bf16 weights, f32 arithmetic)."""
+    model, cpu_model = _small_pair()
+    example = torch.zeros(1, 1, 64, 64)
+    served = CompiledForward(model, example, batch_sizes=(1, 4), quantize="int8", device="cuda")
+    host = CompiledForward(cpu_model, example, batch_sizes=(4,), quantize="int8", device="cpu")
+    assert served._params["fno_blocks.conv_0.w_weight"][0].device.type == "cuda"
+    x = torch.randn(3, 1, 64, 64, generator=torch.Generator().manual_seed(1))
+    before = tsc.launch_counts(by_dtype=True)["mode_contraction"]
+    y = served(x).cpu()
+    after = tsc.launch_counts(by_dtype=True)["mode_contraction"]
+    assert {dt: after[dt] - before[dt] for dt in after} == {"float32": 2, "bfloat16": 0}
+    ref = host(x)
+    assert float((y.double() - ref.double()).norm() / ref.double().norm()) <= 1e-5
+
+
+_LOAD_AND_ANSWER = """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = True
+from neuraloperator_tpu_torch.ops import spectral_contraction as tsc
+from neuraloperator_tpu_torch.serving import load_exported
+forward = load_exported(sys.argv[1])
+x = torch.load(sys.argv[2]).cuda()
+tsc.reset_launch_counts()
+torch.save(forward(x).cpu(), sys.argv[3])
+print(json.dumps(tsc.launch_counts()))
+"""
+
+
+def test_exported_forward_answers_in_a_fresh_process(card, tmp_path):
+    """An artifact exported on the card, loaded by a new process that
+    switched TF32 on: K1 launched once per spectral layer, the answer within
+    relative l2 1e-6 of the eager forward's (the artifact runs its matmuls
+    with TF32 off, as the eager forward does by default)."""
+    import os
+    import subprocess
+    import sys
+
+    from neuraloperator_tpu_torch.serving import export_forward
+
+    model, _ = _small_pair()
+    path = tmp_path / "fno.pt2"
+    export_forward(model, torch.zeros(1, 1, 64, 64), path=path)
+    x = torch.randn(3, 1, 64, 64, generator=torch.Generator().manual_seed(2))
+    torch.save(x, tmp_path / "x.pt")
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _LOAD_AND_ANSWER, str(path),
+                          str(tmp_path / "x.pt"), str(tmp_path / "y.pt")],
+                         cwd=root, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(root)})
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1])["mode_contraction"] == 2
+    with torch.no_grad():
+        want = model.eval()(x.cuda()).cpu()
+    got = torch.load(tmp_path / "y.pt")
+    assert float((got.double() - want.double()).norm() / want.double().norm()) <= 1e-6
+
+
+def test_remat_launches_k1_twice_per_layer(card):
+    """A remat model's step recomputes each layer's forward in the backward:
+    K1 twice per spectral layer, K2 and K3 once, and the gradients of the
+    same model without remat to the bit."""
+    model, _ = _small_pair(remat=True)
+    plain, _ = _small_pair()
+    x = torch.randn(4, 1, 64, 64, device="cuda")
+    grads = []
+    for m in (plain, model):
+        before = tsc.launch_counts()
+        m(x).square().mean().backward()
+        torch.cuda.synchronize()
+        after = tsc.launch_counts()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    assert {k: after[k] - before[k] for k in after} == {
+        "mode_contraction": 4, "mode_contraction_dx": 2, "mode_contraction_dw": 2}
+    for name, g in grads[0].items():
+        assert torch.equal(g, grads[1][name]), name
 
 
 def test_graphed_rollout_epoch_matches_the_eager_loop(card):
