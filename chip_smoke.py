@@ -136,7 +136,22 @@ Phases, each printed with its elapsed seconds as it goes:
    resumed from its files), ``model.msgpack`` rebuilt by
    ``models.from_checkpoint`` and rescored, the graphed scanned step's ms,
    and one scan+remat step card against CPU;
-14. prints one ``{"kernels": [...]}`` line, then, as the last line,
+14. tfno: the flagship's architecture with Tucker rank-0.1 spectral weights
+   (``--model.factorization tucker --model.rank 0.1``, 6,837,841
+   parameters) from a seeded init: (1) ``train_navier_stokes`` with the
+   recipe phase's flags, 2 graphed epochs then 1 resumed from the saved
+   files (finite losses, the resume at epoch 2 from count 100,
+   ``model.msgpack`` rebuilt by ``models.from_checkpoint`` and rescored),
+   the graphed step's ms beside the recipe's FNO step, its idle share over
+   20 replays, the peak memory, and an evaluation forward at batch 16; (2)
+   one step of batch 2 and a batch-3 forward, card against CPU; (3) the
+   trained weights contracted "reconstructed" (K1 per layer and forward,
+   K2 and K3 per layer and step) against "factorized" (no kernel): the
+   forward on 16 test pairs and one step's gradients; (4) ``serve_model``
+   on the saved run (latency per bucket, resident bytes); (5)
+   ``export_forward`` of it (symbolic batch) answered by a fresh
+   ``python3`` process; (6) one graphed epoch under the mixed flags;
+15. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -358,6 +373,25 @@ INT8_L2_BOUND, INT8_H1_BOUND = 2 * 0.002264, 2 * 0.004132
 EXPORT_TOL, EXPORT_BATCHES = 1e-6, (1, 3, 8)
 # the remat/scan phase: seeded flagship weights at batch 8
 REMAT_STEPS = 4
+# the tfno phase: the flagship's architecture with Tucker rank-0.1 spectral
+# weights (scripts/train_navier_stokes.py:8; the JAX package's TFNO_Medium2d),
+# from a seeded init (no TFNO checkpoint exists): the recipe's flags, 2
+# graphed epochs, then 1 resumed
+TFNO_FLAGS = ["--model.factorization", "tucker", "--model.rank", "0.1"]
+TFNO_PARAMS, TFNO_EPOCHS = 6_837_841, 2
+# the same trained weights contracted "reconstructed" (the weight rebuilt
+# from its factors, then K1-K3) against "factorized" (the Tucker einsums):
+# the same f32 arithmetic in another order. The forward on 16 test pairs
+# within 1e-5 relative l2; one train step's gradients within 1e-4 per leaf,
+# the card-against-CPU bound of a step
+TFNO_IMPL_PAIRS, TFNO_IMPL_TOL, TFNO_IMPL_GRAD_TOL = 16, 1e-5, 1e-4
+# a batch-3 forward of the seeded TFNO, card against CPU: the serve phase's bound
+TFNO_FORWARD_TOL = 1e-4
+
+# the profile tables' kinds of kernel, by words in a kernel's name (first match)
+KERNEL_KINDS = (("K1-K3", ("channel_contraction", "weight_grad")),
+                ("gemm", ("gemm", "splitKreduce")), ("copy", ("copy",)),
+                ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
 
 _T0 = time.perf_counter()
 
@@ -868,12 +902,18 @@ def profile_window(label: str, run) -> dict:
         return {"wall_ms": wall_ms}
     total = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    by_kind = {}
+    for name, ms in kernels.items():
+        kind = next((k for k, words in KERNEL_KINDS if any(w in name for w in words)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
     log(f"profile: {label}: wall {wall_ms:.2f} ms, kernels "
         f"{total:.2f} ms ({total / wall_ms:.1%}; idle {1 - total / wall_ms:.1%}); "
-        f"annotated spans (ms) {spans}")
+        f"annotated spans (ms) {spans}; kernel ms by kind "
+        f"{ {k: round(v, 3) for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])} }")
     for key, ms in top:
         print(f"    {ms:9.3f} ms  {ms / total:6.1%}  {key[:110]}", flush=True)
-    return {"wall_ms": wall_ms, "device_ms": total, "spans": spans, "top": top}
+    return {"wall_ms": wall_ms, "device_ms": total, "spans": spans, "top": top,
+            "by_kind": by_kind}
 
 
 def generate_splits() -> dict:
@@ -2256,6 +2296,398 @@ def remat_scan(processor, recipe_run: dict) -> dict:
             "launches_by_dtype": by_dtype, "remat": remat, "scan": scan}
 
 
+def tfno_meta() -> dict:
+    """The flagship's architecture with the TFNO flags' spectral weights, as
+    train_navier_stokes builds it from them."""
+    meta = flagship_meta()
+    meta["init_kwargs"].update(factorization="tucker", rank=0.1)
+    return meta
+
+
+def no_launches(launches: dict, label: str) -> None:
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched {launches}: the factorized TFNO runs no kernel")
+
+
+def tfno_train(processor, recipe_step_ms: float, save_dir: Path) -> dict:
+    """(1) train_navier_stokes with the TFNO flags, 2 graphed epochs and 1
+    resumed; the saved weights rebuilt and rescored; the graphed step's
+    time, idle share and peak memory; an evaluation forward at batch 16."""
+    from neuraloperator_tpu_torch.data.transforms import load_data_processor
+    from neuraloperator_tpu_torch.models import from_checkpoint
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+    from neuraloperator_tpu_torch.training.training_state import load_training_state
+    from neuraloperator_tpu_torch.utils import count_model_params
+
+    steps_per_epoch = RECIPE_PAIRS // TRAIN_BATCH
+    flags = [*RECIPE_FLAGS, *TFNO_FLAGS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    evals: list = []
+    t0 = time.perf_counter()
+    first = run_recipe_entry_point(
+        [*flags, "--opt.n_epochs", str(TFNO_EPOCHS), "--save_dir", str(save_dir)], evals)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    count_saved = saved_count(save_dir)
+    n_params = count_model_params(evals[-1][0].model)
+    del evals
+    resumed_evals: list = []
+    t0 = time.perf_counter()
+    resumed = run_recipe_entry_point(
+        [*flags, "--opt.n_epochs", str(TFNO_EPOCHS + 1), "--save_dir", str(save_dir),
+         "--resume_from_dir", str(save_dir)], resumed_evals)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    train_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    launches = read_launches()
+    trainer = resumed_evals[-1][0]
+    step_ms = 1e3 * first["epoch_time"] / steps_per_epoch  # a warm epoch: captured before it
+    log(f"tfno train: train_navier_stokes {' '.join(TFNO_FLAGS)}: {n_params} parameters; "
+        f"{TFNO_EPOCHS} epochs x {steps_per_epoch} graphed steps in {first_s:.1f} s: {first}; "
+        f"resumed to epoch {TFNO_EPOCHS + 1} in {resume_s:.1f} s: {resumed}; saved optimizer "
+        f"count {count_saved} -> {saved_count(save_dir)}; launches {launches}; graphed TFNO "
+        f"step {step_ms:.2f} ms (the first run's last epoch_time) vs the recipe's FNO "
+        f"{recipe_step_ms:.2f} ms; peak device memory {train_peak_mib:.0f} MiB")
+    if n_params != TFNO_PARAMS:
+        raise AssertionError(f"the TFNO holds {n_params} parameters, not {TFNO_PARAMS}")
+    if not all(math.isfinite(v) for v in (*first.values(), *resumed.values())):
+        raise AssertionError(f"non-finite TFNO metrics {first}, {resumed}")
+    if not (trainer.start_epoch == TFNO_EPOCHS and count_saved == TFNO_EPOCHS * steps_per_epoch
+            and int(trainer.optimizer.count) == (TFNO_EPOCHS + 1) * steps_per_epoch
+            == saved_count(save_dir)):
+        raise AssertionError(f"the TFNO run resumed at epoch {trainer.start_epoch} from count "
+                             f"{count_saved}")
+    if trainer.staged_step.graph is None:
+        raise AssertionError("the TFNO step was not captured as a CUDA graph")
+    no_launches(launches, "the TFNO recipe")
+    replay = replay_ms(trainer.staged_step, GRAPH_PROFILE_STEPS)
+    staged = trainer.staged_step
+    order = (torch.arange(GRAPH_PROFILE_STEPS * TRAIN_BATCH, device=staged.index.device)
+             % len(staged.data["x"])).reshape(GRAPH_PROFILE_STEPS, TRAIN_BATCH)
+
+    def replays():
+        for i in range(GRAPH_PROFILE_STEPS):
+            staged(order[i])
+
+    profile = profile_window(f"{GRAPH_PROFILE_STEPS} graphed TFNO train steps of batch "
+                             f"{TRAIN_BATCH}", replays)
+    model = trainer.model.eval()
+    del trainer, resumed_evals
+    # an evaluation forward at batch 16, where the JAX plan builds its
+    # 1.4G-element intermediate
+    xs, ys = ev.load_test_split(EVAL_RES, EVAL_PAIRS, device="cuda")
+    x16 = processor.in_normalizer.transform(torch.from_numpy(xs[:EVAL_BATCH]).cuda())
+    with torch.no_grad():
+        model(x16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mib = torch.cuda.memory_allocated() / 2**20
+        t0 = time.perf_counter()
+        for _ in range(10):
+            model(x16)
+        torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.perf_counter() - t0) / 10
+    eval_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    log(f"tfno train: graphed step {replay:.2f} ms (host clock, {GRAPH_PROFILE_STEPS} warm "
+        f"replays); evaluation forward at batch {EVAL_BATCH}: {eval_ms:.2f} ms, peak device "
+        f"memory {eval_peak_mib:.0f} MiB ({eval_peak_mib - base_mib:.0f} MiB above the "
+        f"{base_mib:.0f} MiB held before it)")
+    del model
+    rebuilt = from_checkpoint(save_dir, "model", device="cuda")
+    rebuilt.load_state_dict(load_training_state(save_dir, "model", rebuilt.state_dict(),
+                                                device="cuda")[0])
+    rescored = ev.evaluate(rebuilt.eval(), load_data_processor(save_dir), xs, ys, EVAL_BATCH,
+                           device="cuda")
+    reload_err = abs(rescored["rel_l2"] - resumed["128_l2"]) / resumed["128_l2"]
+    log(f"tfno train: model.msgpack rebuilt by from_checkpoint scores {rescored} against the "
+        f"run's 128_l2 {resumed['128_l2']:.6e}: relative difference {reload_err:.2e} (tol "
+        f"{BEST_RELOAD_TOL:.0e})")
+    if not (rebuilt.fno_blocks.conv_0.spec.kind == "tucker" and reload_err <= BEST_RELOAD_TOL):
+        raise AssertionError(f"the rebuilt TFNO scores {rescored}")
+    return {"first": first, "resumed": resumed, "first_s": first_s, "resume_s": resume_s,
+            "graphed_step_ms": step_ms, "replay_ms": replay, "recipe_step_ms": recipe_step_ms,
+            "train_peak_mib": train_peak_mib, "graphed_profile": profile,
+            "eval16_ms": eval_ms, "eval16_peak_mib": eval_peak_mib,
+            "eval16_base_mib": base_mib, "reload_rel_diff": reload_err, "n_params": n_params}
+
+
+def tfno_against_cpu_and_reconstructed(processor, save_dir: Path) -> dict:
+    """(2) one step of batch 2 and a batch-3 forward from seeded weights,
+    card against CPU; (3) the trained weights contracted "reconstructed"
+    against "factorized": 16 test pairs' forward, one train step's
+    gradients, and the launches of each."""
+    from neuraloperator_tpu_torch.models import model_from_metadata
+    from neuraloperator_tpu_torch.scripts import eval_ns_checkpoint as ev
+    from neuraloperator_tpu_torch.training.training_state import load_training_state
+
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    meta = tfno_meta()
+    in_std = float(processor.in_normalizer.std.ravel()[0])
+    seeded = model_from_metadata(meta, device="cuda",
+                                 generator=torch.Generator().manual_seed(SEED + 2))
+    x3 = torch.from_numpy(make_pairs(3, in_std, SEED + 6)[0])
+    with torch.no_grad():
+        fwd_err = rel_l2_t(seeded.eval()(x3.cuda()), cpu_copy(seeded, meta).eval()(x3))
+    log(f"tfno: batch-3 forward of the seeded TFNO, card vs CPU: rel_l2 {fwd_err:.3e} (tol "
+        f"{TFNO_FORWARD_TOL:.0e})")
+    if not fwd_err <= TFNO_FORWARD_TOL:
+        raise AssertionError(f"the TFNO forward on the card departs from the CPU: {fwd_err}")
+    reset_launches()
+    step = compare_step_with_cpu(seeded.train(), meta, processor,
+                                 *make_pairs(2, in_std, SEED + 3))
+    no_launches(read_launches(), "the factorized TFNO step")
+    del seeded
+
+    models = {}
+    for impl in ("factorized", "reconstructed"):
+        impl_meta = tfno_meta()
+        impl_meta["init_kwargs"]["implementation"] = impl
+        model = model_from_metadata(impl_meta, device="meta").to_empty(device="cuda")
+        model.load_state_dict(load_training_state(save_dir, "model", model.state_dict(),
+                                                  device="cuda")[0])
+        models[impl] = model.eval()
+    xs, ys = ev.load_test_split(EVAL_RES, TFNO_IMPL_PAIRS, device="cuda")
+    x = processor.in_normalizer.transform(torch.from_numpy(xs).cuda())
+    outs, fwd_launches = {}, {}
+    for impl, model in models.items():
+        reset_launches()
+        with torch.no_grad():
+            outs[impl] = model(x)
+        torch.cuda.synchronize()
+        fwd_launches[impl] = read_launches()
+    impl_err = rel_l2_t(outs["reconstructed"], outs["factorized"])
+    steps, step_launches = {}, {}
+    for impl, model in models.items():
+        reset_launches()
+        steps[impl] = one_step(model.train(), processor, xs[:TRAIN_BATCH], ys[:TRAIN_BATCH],
+                               "cuda")
+        torch.cuda.synchronize()
+        step_launches[impl] = read_launches_by_dtype()
+    names = sorted(steps["factorized"][1])
+    grad_err = {n: rel_l2_t(steps["reconstructed"][1][n], steps["factorized"][1][n])
+                for n in names}
+    worst = max(grad_err, key=grad_err.get)
+    log(f"tfno: trained weights contracted reconstructed vs factorized: forward of "
+        f"{TFNO_IMPL_PAIRS} test pairs rel_l2 {impl_err:.3e} (tol {TFNO_IMPL_TOL:.0e}); "
+        f"launches per forward {fwd_launches}; one step of batch {TRAIN_BATCH}: loss "
+        f"{steps['reconstructed'][0]:.7f} vs {steps['factorized'][0]:.7f}, gradients rel_l2 max "
+        f"{grad_err[worst]:.2e} ({worst}, tol {TFNO_IMPL_GRAD_TOL:.0e}); launches {step_launches}")
+    if not impl_err <= TFNO_IMPL_TOL:
+        raise AssertionError(f"reconstructed and factorized forwards differ: {impl_err}")
+    no_launches(fwd_launches["factorized"], "the factorized forward")
+    no_launches({k: sum(v.values()) for k, v in step_launches["factorized"].items()},
+                "the factorized step")
+    if fwd_launches["reconstructed"] != {"mode_contraction": n_layers, "mode_contraction_dx": 0,
+                                         "mode_contraction_dw": 0}:
+        raise AssertionError(f"the reconstructed forward launched {fwd_launches}")
+    only_dtype(step_launches["reconstructed"], "float32")
+    if {k: v["float32"] for k, v in step_launches["reconstructed"].items()} != \
+            {"mode_contraction": n_layers, "mode_contraction_dx": n_layers,
+             "mode_contraction_dw": n_layers}:
+        raise AssertionError(f"the reconstructed step launched {step_launches}")
+    misses = {k: v for k, v in grad_err.items() if not v <= TFNO_IMPL_GRAD_TOL}
+    if misses:
+        raise AssertionError(f"reconstructed and factorized gradients differ: {misses}")
+    by_dtype = {name: {dt: c + (fwd_launches["reconstructed"][name] if dt == "float32" else 0)
+                       for dt, c in counts.items()}
+                for name, counts in step_launches["reconstructed"].items()}
+    return {"forward_card_vs_cpu": fwd_err, **step, "impl_forward_rel_l2": impl_err,
+            "impl_grad_rel_l2_max": grad_err[worst], "impl_grad_worst": worst,
+            "forward_launches": fwd_launches, "step_launches": step_launches,
+            "launches_by_dtype": by_dtype}
+
+
+def tfno_serve_export(processor, save_dir: Path) -> dict:
+    """(4) serve_model on the saved TFNO; (5) export_forward of it, answered
+    by a fresh python3 process."""
+    from neuraloperator_tpu_torch.models import from_checkpoint
+    from neuraloperator_tpu_torch.scripts import serve_model
+    from neuraloperator_tpu_torch.serving import CompiledForward, export_forward
+    from neuraloperator_tpu_torch.training.training_state import load_training_state
+
+    t0 = time.perf_counter()
+    reset_launches()
+    served = serve_model.main(["--ckpt_dir", str(save_dir), "--name", "model", "--shape",
+                               "[1,128,128]", "--buckets", str(list(BUCKETS)).replace(" ", ""),
+                               "--probe_iters", "20", "--device", "cuda"])
+    serve_s = time.perf_counter() - t0
+    no_launches(read_launches(), "serve_model on the TFNO")
+    log(f"tfno serve: serve_model in {serve_s:.1f} s: latency ms per bucket "
+        f"{served['latency_ms']}, resident weights {served['weight_bytes'] / 1e6:.1f} MB; "
+        f"ragged request {served['ragged']}")
+    if not (served["ragged"]["finite"] and served["weight_bytes"] == 4 * TFNO_PARAMS):
+        raise AssertionError(f"serve_model on the TFNO: {served}")
+
+    model = from_checkpoint(save_dir, "model", device="cuda")
+    model.load_state_dict(load_training_state(save_dir, "model", model.state_dict(),
+                                              device="cuda")[0])
+    fns = dict(preprocess_fn=processor.in_normalizer.transform,
+               postprocess_fn=processor.out_normalizer.inverse_transform)
+    example = torch.zeros(1, 1, 128, 128)
+    work = Path(tempfile.mkdtemp(prefix="tfno-export-"))
+    try:
+        artifact = work / "tfno.pt2"
+        t0 = time.perf_counter()
+        blob = export_forward(model, example, path=artifact, **fns)
+        export_s = time.perf_counter() - t0
+        graph = torch.export.load(str(artifact)).graph
+        targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
+        ops = targets.count("neuraloperator_tpu_torch.mode_contraction.default")
+        einsum_like = sum(1 for t in targets if "einsum" in t or "bmm" in t)
+        eager = CompiledForward(model, example, batch_sizes=EXPORT_BATCHES, device="cuda", **fns)
+        gen = torch.Generator().manual_seed(SEED + 21)
+        in_std = float(processor.in_normalizer.std.ravel()[0])
+        inputs = [in_std * torch.randn(n, 1, 128, 128, generator=gen) for n in EXPORT_BATCHES]
+        want = [eager(x).cpu() for x in inputs]
+        answers, report, wall_s = answer_in_a_fresh_process(artifact, inputs, work)
+        errs = [rel_l2_t(a, w) for a, w in zip(answers, want)]
+        log(f"tfno export: export_forward (symbolic batch) {len(blob) / 1e6:.1f} MB in "
+            f"{export_s:.2f} s; graph holds {ops} contraction operators and {einsum_like} "
+            f"einsum/bmm nodes; a fresh process (TF32 on: {report['allow_tf32']}) loaded it "
+            f"in {report['load_s']:.2f} s ({wall_s:.1f} s with its start) and answered batches "
+            f"{EXPORT_BATCHES}: rel_l2 vs eager {errs} (tol {EXPORT_TOL:.0e}); launches "
+            f"{report['launches']}")
+        if not (ops == 0 and report["allow_tf32"] and max(errs) <= EXPORT_TOL):
+            raise AssertionError(f"the TFNO artifact departs from eager: {ops} operators, {errs}")
+        no_launches({n: sum(c.values()) for n, c in report["launches"].items()},
+                    "the TFNO artifact")
+        return {"latency_ms": served["latency_ms"], "weight_bytes": served["weight_bytes"],
+                "serve_s": serve_s, "export_mb": len(blob) / 1e6, "export_s": export_s,
+                "load_s": report["load_s"], "process_s": wall_s, "rel_l2_vs_eager": errs}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def tfno_mixed(tfno_step_ms: float) -> dict:
+    """(6) one graphed epoch of the TFNO under the mixed flags."""
+    steps_per_epoch = RECIPE_PAIRS // TRAIN_BATCH
+    flags = [*RECIPE_FLAGS, *TFNO_FLAGS]
+    for flag, value in MIXED_FLAGS.items():
+        if flag in flags:
+            flags[flags.index(flag) + 1] = value
+        else:
+            flags += [flag, value]
+    save_dir = Path(tempfile.mkdtemp(prefix="tfno-mixed-"))
+    try:
+        reset_launches()
+        evals: list = []
+        t0 = time.perf_counter()
+        final = run_recipe_entry_point([*flags, "--opt.n_epochs", "1", "--save_dir",
+                                        str(save_dir)], evals)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        trainer = evals[-1][0]
+        step_ms = replay_ms(trainer.staged_step, GRAPH_PROFILE_STEPS)
+        w_dtype = trainer.model.fno_blocks.conv_0.w_core.dtype
+        log(f"tfno mixed: 1 graphed epoch of {steps_per_epoch} steps with "
+            f"{' '.join(f'{k} {v}' for k, v in MIXED_FLAGS.items())} in {run_s:.1f} s: {final}; "
+            f"core stored {w_dtype}; graphed mixed TFNO step {step_ms:.2f} ms (host clock, "
+            f"{GRAPH_PROFILE_STEPS} warm replays) vs the f32 TFNO's {tfno_step_ms:.2f} ms")
+        if not all(math.isfinite(v) for v in final.values()):
+            raise AssertionError(f"non-finite mixed TFNO metrics {final}")
+        if trainer.staged_step.graph is None or w_dtype != torch.bfloat16:
+            raise AssertionError("the mixed TFNO step was not graphed over bf16 factors")
+        no_launches(read_launches(), "the mixed TFNO run")
+        return {"final": final, "run_s": run_s, "graphed_step_ms": step_ms}
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+
+def plan_macs(eq: str, shapes) -> int:
+    """Complex multiply-adds of the complex einsum's plan for ``eq`` at ``shapes``."""
+    from neuraloperator_tpu_torch.ops import complex_einsum as ce
+
+    dims = {}
+    for sub, shape in zip(eq.split("->")[0].split(","), shapes):
+        dims.update(zip(sub, shape))
+    return sum(math.prod(dims[c] for c in set(pair.split("->")[0].replace(",", "")))
+               for _, pairs in ce.plan(eq, tuple(shapes)) for pair in pairs if "," in pair)
+
+
+def graphed(fn) -> torch.cuda.CUDAGraph:
+    """``fn`` captured as a CUDA graph, after two warm-up calls on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def tucker_contraction_times() -> dict:
+    """Device ms of one flagship TFNO layer's mode contraction, seeded
+    factors, at batches 8 (the step) and 16 (the evaluation): the Tucker
+    einsum chain ("factorized") and the weight rebuilt then contracted by
+    K1 ("reconstructed"), forward alone and forward with backward; beside
+    the chain's complex MACs (from its plan) and their time at the f32 peak.
+    The operands (at most 17 MB) stay in L2, as a layer's may. Each call
+    is timed as a CUDA graph replay, as the graphed step runs it: launched
+    one by one, the chain's some 60 kernels per forward fill the launch
+    queue behind ``device_ms``'s device-side wait."""
+    from neuraloperator_tpu_torch._timing import device_ms
+    from neuraloperator_tpu_torch.layers import SpectralConv
+    from neuraloperator_tpu_torch.ops.contractions import contract_block
+
+    conv = SpectralConv(CHANNELS, CHANNELS, (64, 64), factorization="tucker", rank=0.1,
+                        device="cuda", generator=torch.Generator().manual_seed(SEED + 7))
+    spec = conv.spec
+    i, o, *modes = spec.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    out = {}
+    for batch in (TRAIN_BATCH, EVAL_BATCH):
+        x = tuple(torch.randn(batch, i, *modes, generator=gen, device="cuda") for _ in range(2))
+        g = tuple(torch.randn(batch, o, *modes, generator=gen, device="cuda") for _ in range(2))
+        for impl in ("factorized", "reconstructed"):
+            # the factors are read inside each call: a view taken outside
+            # would run its backward on the stream it was taken on
+            def fwd(impl=impl):
+                with torch.no_grad():
+                    contract_block(x, spec, conv.factors(), implementation=impl)
+
+            def fwd_bwd(impl=impl):
+                torch.autograd.backward(
+                    contract_block(x, spec, conv.factors(), implementation=impl), g)
+
+            out[f"{impl} B={batch}"] = {
+                "fwd_ms": device_ms(graphed(fwd).replay, [()], iters=20)[0],
+                "fwd_bwd_ms": device_ms(graphed(fwd_bwd).replay, [()], iters=20)[0]}
+        # contract_tucker's equation for a 2-D layer; three real products per
+        # complex MAC (Karatsuba), two flops each
+        macs = plan_macs("abcd,fghi,bf,eg,ch,di->aecd",
+                         [(batch, i, *modes), spec.ranks, *zip(spec.shape, spec.ranks)])
+        out[f"factorized B={batch}"].update(
+            complex_macs=macs, peak_ms=6 * macs / PEAK_FLOPS[torch.float32] * 1e3)
+    log(f"tfno: one layer's contraction at the flagship's shapes, device ms: "
+        f"{ {k: {n: round(v, 4) for n, v in d.items()} for k, d in out.items()} }")
+    return out
+
+
+def tfno(processor, recipe_run: dict) -> dict:
+    """(14) the Tucker TFNO at the flagship's width through the train, serve
+    and export entry points; its kernel launches are the reconstructed
+    path's (the factorized path launches none, which each part checks)."""
+    save_dir = Path(tempfile.mkdtemp(prefix="tfno-"))
+    try:
+        trained = tfno_train(processor, recipe_run["step_ms"]["graphed"], save_dir)
+        checks = tfno_against_cpu_and_reconstructed(processor, save_dir)
+        served = tfno_serve_export(processor, save_dir)
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    mixed_run = tfno_mixed(trained["replay_ms"])
+    contraction = tucker_contraction_times()
+    by_dtype = {name: {"float32": 0, "bfloat16": 0, **checks["launches_by_dtype"][name]}
+                for name in kernel_specs()}
+    return {"launches": {name: sum(c.values()) for name, c in by_dtype.items()},
+            "launches_by_dtype": by_dtype, "train": trained, "checks": checks,
+            "serve_export": served, "mixed": mixed_run, "contraction": contraction}
+
+
 def kernel_line(variants, paths) -> list:
     """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
     with its launches summed over the paths, by path, by dtype, and by path
@@ -2338,12 +2770,13 @@ def main() -> None:
     options_run = options(mixed_run)
     quantize_run = quantize_export(processor, served)
     remat_scan_run = remat_scan(processor, recipe_run)
+    tfno_run = tfno(processor, recipe_run)
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
                                      "recipe": recipe_run, "mixed": mixed_run,
                                      "superres": superres_run, "rollout": rollout_run,
                                      "options": options_run, "quantize_export": quantize_run,
-                                     "remat_scan": remat_scan_run})
+                                     "remat_scan": remat_scan_run, "tfno": tfno_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
@@ -2367,7 +2800,12 @@ def main() -> None:
         f"remat step peak {remat_scan_run['remat']['peak_mib']:.0f} MiB vs "
         f"{remat_scan_run['remat']['plain_peak_mib']:.0f}, graphed remat step "
         f"{remat_scan_run['remat']['graph']['step_ms']:.2f} ms, graphed scan step "
-        f"{remat_scan_run['scan']['graphed_step_ms']:.2f} ms")
+        f"{remat_scan_run['scan']['graphed_step_ms']:.2f} ms; tfno graphed step "
+        f"{tfno_run['train']['replay_ms']:.2f} ms (mixed "
+        f"{tfno_run['mixed']['graphed_step_ms']:.2f} ms), batch-16 eval forward "
+        f"{tfno_run['train']['eval16_ms']:.2f} ms, peak {tfno_run['train']['eval16_peak_mib']:.0f} "
+        f"MiB, served latency ms {tfno_run['serve_export']['latency_ms']}, artifact "
+        f"{tfno_run['serve_export']['export_mb']:.1f} MB")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,7 +2,8 @@
 
 The JAX package ``neuraloperator_tpu`` is the reference; this package
 imports none of it. Ported so far: serving the FNO (``models.FNO``,
-``serving.CompiledForward``) and training it (``training.Trainer``,
+``serving.CompiledForward``) and its Tucker-factorized variant
+(``models.TFNO``, ``tensor.factorized``) and training them (``training.Trainer``,
 ``training.build_optimizer``, ``losses``, ``data``), with the spectral mode
 contraction and its backward as CUDA kernels (``ops/spectral_contraction.py``,
 ``csrc/spectral_contraction.cu``).

@@ -129,6 +129,37 @@ class FNOModelConfig(ConfigBase):
     scan_layers: bool = False
 
 
+# model presets of the JAX package (reference config/models.py)
+
+
+@dataclass
+class FNO_Small2d(FNOModelConfig):
+    """Darcy-scale FNO (reference config/models.py:46-56)."""
+
+    n_modes: List[int] = field(default_factory=lambda: [16, 16])
+    hidden_channels: int = 24
+    projection_channel_ratio: int = 2
+
+
+@dataclass
+class FNO_Medium2d(FNOModelConfig):
+    """NS-128^2-scale FNO (reference config/models.py:58-68)."""
+
+    n_modes: List[int] = field(default_factory=lambda: [64, 64])
+    hidden_channels: int = 64
+    projection_channel_ratio: int = 4
+
+
+@dataclass
+class TFNO_Medium2d(FNO_Medium2d):
+    """Tucker-factorized medium FNO (rank 0.1)."""
+
+    model_arch: str = "tfno"
+    factorization: str = "tucker"
+    rank: float = 0.1
+    implementation: str = "factorized"
+
+
 @dataclass
 class DistributedConfig(ConfigBase):
     use_distributed: bool = False
@@ -136,5 +167,5 @@ class DistributedConfig(ConfigBase):
     seed: int = 666
 
 
-__all__ = ["ConfigBase", "DistributedConfig", "FNOModelConfig", "OptConfig",
-           "make_config_from_cli"]
+__all__ = ["ConfigBase", "DistributedConfig", "FNOModelConfig", "FNO_Medium2d", "FNO_Small2d",
+           "OptConfig", "TFNO_Medium2d", "make_config_from_cli"]

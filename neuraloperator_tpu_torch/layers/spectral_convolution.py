@@ -1,13 +1,18 @@
 """Spectral convolution (port of ``neuraloperator_tpu/layers/spectral_convolution.py``).
 
-Ported branch: real data, dense weights, Hermitian symmetry enforced, every
-axis at most 512 points, ``fno_block_precision`` "full", "half" or "mixed",
-``weight_dtype`` "float32" or "bfloat16". The forward is
+Ported branch: real data, Hermitian symmetry enforced, every axis at most
+512 points, ``fno_block_precision`` "full", "half" or "mixed",
+``weight_dtype`` "float32" or "bfloat16"; dense, CP, Tucker or TT weights
+(``factorization``, ``rank``, ``fixed_rank_modes``), contracted
+``"factorized"`` or ``"reconstructed"`` (``implementation``), separable or
+not. The forward is
 
 1. ``rdft_gather_last`` along the last axis, then ``dft_gather_axis`` on
    each earlier axis (truncated DFT matmuls);
-2. the per-mode complex contraction (``ops/contractions.contract_dense``,
-   the CUDA kernel on the card);
+2. the per-mode complex contraction (``ops/contractions.contract_block``):
+   a dense weight, or one rebuilt from its factors (``"reconstructed"``),
+   through ``contract_dense`` (the CUDA kernels on the card), factors
+   through the complex einsums of ``contract_cp/tucker/tt``;
 3. ``_shrink_centered``, ``dft_scatter_axis`` on the earlier axes, then
    ``rdft_scatter_last`` (inverse DFT matmuls with structural Hermitian
    enforcement);
@@ -16,14 +21,17 @@ axis at most 512 points, ``fno_block_precision`` "full", "half" or "mixed",
 "full" computes in float32 whatever the input's dtype. "half" and "mixed"
 round where the JAX function rounds: "half" first rounds x through
 bfloat16; both run the forward DFTs on bfloat16 x, contract bfloat16
-operands with float32 sums (the kernels' bf16 variants), round the
-contraction's output to bfloat16 for the inverse DFTs, and return bfloat16
-(the last inverse sums in float32, then rounds), the bias added in it.
+operands with float32 sums (the kernels' bf16 variants; bf16 products of
+the einsums), round the contraction's output to bfloat16 for the inverse
+DFTs, and return bfloat16 (the last inverse sums in float32, then rounds),
+the bias added in it.
 
-Weights keep the JAX storage layout: ``w_weight`` is ``(2, in, out, m1..mN)``
-(real and imaginary parts stacked), stored as ``weight_dtype`` and read as
-float32; ``bias`` is ``(out, 1, .., 1)``, float32, cast to the output's
-dtype where it is added.
+Weights keep the JAX storage layout and names: one parameter per factor,
+``w_weight`` (dense, ``(2, in, out, m1..mN)``; ``(2, in, m1..mN)``
+separable), or ``w_core``/``w_lambdas`` and ``w_factor_0..N``, each with
+the real and imaginary parts stacked on a leading axis of 2, stored as
+``weight_dtype`` and read as float32; ``bias`` is ``(out, 1, .., 1)``,
+float32, cast to the output's dtype where it is added.
 """
 
 from typing import List, Optional, Sequence, Tuple, Union
@@ -32,7 +40,7 @@ import torch
 from torch import nn
 
 from .._common import not_ported, resolve_device
-from ..ops.contractions import contract_dense
+from ..ops.contractions import contract_block
 from ..ops.fourier import (
     dft_gather_axis,
     dft_scatter_axis,
@@ -40,6 +48,7 @@ from ..ops.fourier import (
     rdft_scatter_last,
     resolve_weight_slices,
 )
+from ..tensor.factorized import FactorizationSpec, init_factors, resolve_spec, slice_factors
 from . import _init
 
 # inputs wider than this go through an FFT in the JAX package
@@ -57,11 +66,12 @@ def halve_last_mode(n_modes: Sequence[int], complex_data: bool) -> List[int]:
 
 
 PRECISIONS = ("full", "half", "mixed")
+IMPLEMENTATIONS = ("reconstructed", "factorized")
 WEIGHT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class SpectralConv(nn.Module):
-    """N-dimensional spectral convolution over real data with dense weights."""
+    """N-dimensional spectral convolution over real data."""
 
     def __init__(
         self,
@@ -87,15 +97,8 @@ class SpectralConv(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        del rank, fixed_rank_modes, implementation  # dense weights only
         if complex_data:
             raise not_ported("SpectralConv complex_data=True", "the other families")
-        if separable:
-            raise not_ported("SpectralConv separable=True", "the other families")
-        if factorization is not None:
-            raise not_ported(
-                f"SpectralConv factorization={factorization!r}", "the other families"
-            )
         if fno_block_precision not in PRECISIONS:
             raise ValueError(
                 f"fno_block_precision must be one of {PRECISIONS}, got {fno_block_precision!r}"
@@ -103,6 +106,10 @@ class SpectralConv(nn.Module):
         if weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(
                 f"weight_dtype must be 'float32' or 'bfloat16', got {weight_dtype!r}"
+            )
+        if implementation not in IMPLEMENTATIONS:
+            raise ValueError(
+                f"implementation must be 'reconstructed' or 'factorized', got {implementation}"
             )
         if resolution_scaling_factor is not None:
             raise not_ported("SpectralConv resolution_scaling_factor", "the other families")
@@ -117,6 +124,8 @@ class SpectralConv(nn.Module):
         )
         self.fft_norm = fft_norm
         self.fno_block_precision = fno_block_precision
+        self.separable = separable
+        self.implementation = implementation
         halved = halve_last_mode(self.n_modes, complex_data=False)
         if max_n_modes is None:
             self.max_n_modes = halved
@@ -125,28 +134,56 @@ class SpectralConv(nn.Module):
                 [int(max_n_modes)] if isinstance(max_n_modes, int)
                 else [int(m) for m in max_n_modes]
             )
+        if separable:
+            if in_channels != out_channels:
+                raise ValueError(
+                    "separable SpectralConv requires in_channels == out_channels,"
+                    f" got {in_channels} != {out_channels}"
+                )
+            weight_shape = (in_channels, *self.max_n_modes)
+        else:
+            weight_shape = (in_channels, out_channels, *self.max_n_modes)
+        fixed = [0] if fixed_rank_modes is True else (fixed_rank_modes or None)
+        self.spec = resolve_spec(factorization, weight_shape, rank, fixed)
         if init_std == "auto":
             std = (2 / (in_channels + out_channels)) ** 0.5
         else:
             std = float(init_std)
         device = resolve_device(device)
-        shape = (2, in_channels, out_channels, *self.max_n_modes)
-        # dense init of the JAX package (tensor/factorized.py:init_factors):
-        # real and imaginary parts each N(0, (std / sqrt 2)^2)
-        self.w_weight = _init.normal(shape, std / 2 ** 0.5, device, generator,
-                                     WEIGHT_DTYPES[weight_dtype])
+        # one (2, ...) parameter per factor, named as the JAX module names it
+        self.factor_names = []
+        for name, param in init_factors(self.spec, std, device, generator,
+                                        WEIGHT_DTYPES[weight_dtype]).items():
+            self.register_parameter(f"w_{name}", param)
+            self.factor_names.append(name)
         self.bias = (
             _init.normal((out_channels,) + (1,) * len(self.n_modes), std, device, generator)
             if use_bias else None
         )
 
+    def factors(self):
+        """``{name: (re, im)}`` of the stored factors, read as float32; a
+        dense weight under "half" or "mixed" is left in its storage dtype,
+        which the contraction casts to bf16 anyway."""
+        keep = (self.spec.kind == "dense" and not self.separable
+                and self.fno_block_precision in ("half", "mixed"))
+        out = {}
+        for name in self.factor_names:
+            w = getattr(self, f"w_{name}")
+            w = w if keep else w.float()
+            out[name] = (w[0], w[1])
+        return out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return spectral_conv_forward(
             x,
-            self.w_weight,
+            self.spec,
+            self.factors(),
             self.bias,
             n_modes=halve_last_mode(self.n_modes, complex_data=False),
             max_n_modes=self.max_n_modes,
+            separable=self.separable,
+            implementation=self.implementation,
             fft_norm=self.fft_norm,
             fno_block_precision=self.fno_block_precision,
         )
@@ -162,15 +199,19 @@ class SpectralConv(nn.Module):
 
 def spectral_conv_forward(
     x: torch.Tensor,
-    weight: torch.Tensor,
+    spec: FactorizationSpec,
+    params,
     bias: Optional[torch.Tensor],
     *,
     n_modes: Sequence[int],
     max_n_modes: Sequence[int],
+    separable: bool = False,
+    implementation: str = "reconstructed",
     fft_norm: str = "forward",
     fno_block_precision: str = "full",
 ) -> torch.Tensor:
-    """Functional core: x (b, in, d1..dN), weight (2, in, out, m1..mN).
+    """Functional core: x (b, in, d1..dN), the weight's ``spec`` and its
+    factors ``params`` (``{name: (re, im)}``).
 
     ``n_modes`` has the last dim already halved (``halve_last_mode``).
     """
@@ -198,22 +239,23 @@ def spectral_conv_forward(
     # active modes sit at the centre of the stored weight (start of the
     # last dim); the slices index its (in, out, modes...) dims
     slices = resolve_weight_slices(
-        fft_size, n_modes, max_n_modes, separable=False, complex_data=False
+        fft_size, n_modes, max_n_modes, separable=separable, complex_data=False
     )
-    w = weight[(slice(None), *slices)]
-    if not mixed:
-        w = w.float()  # bf16 storage is read as f32; "mixed" casts it for the contraction
-    kept = list(w.shape[3:])
+    spec, params = slice_factors(spec, params, slices)
+    kept = list(spec.shape[1 if separable else 2:])
 
     kept_last = min(kept[-1], fft_size[-1])
     br, bi = rdft_gather_last(x, kept_last, fft_norm)
     for i, ax in enumerate(axes[:-1]):
         br, bi = dft_gather_axis(br, bi, min(kept[i], mode_sizes[i]), ax, fft_norm)
     if kept_last < kept[-1]:
-        # weight wider than the spectrum: trim its last-mode entries
-        w = w[..., :kept_last]
+        # weight wider than the spectrum: trim its last-mode factor
+        trim = [slice(None)] * spec.order
+        trim[-1] = slice(0, kept_last)
+        spec, params = slice_factors(spec, params, trim)
 
-    out_r, out_i = contract_dense((br, bi), (w[0], w[1]),
+    out_r, out_i = contract_block((br, bi), spec, params, separable=separable,
+                                  implementation=implementation,
                                   compute_dtype=torch.bfloat16 if mixed else None)
 
     half = mode_sizes[-1] // 2 + 1

@@ -1,13 +1,15 @@
-"""Fourier Neural Operator (port of ``neuraloperator_tpu/models/fno.py``).
+"""Fourier Neural Operator and its Tucker-factorized variant (port of
+``neuraloperator_tpu/models/fno.py``).
 
 Grid embedding -> lifting ChannelMLP -> ``n_layers`` Fourier layers ->
 projection ChannelMLP. The layers are unrolled (``FNOBlocks``), or, with
 ``scan_layers``, one layer over stacked parameters (``ScanFNOBlocks``);
 ``remat`` recomputes each layer's activations in the backward. The
 constructor takes the JAX module's fields, so a ``model_metadata.json``
-builds either.
+builds either. ``TFNO`` is the FNO with rank-0.1 Tucker weights by default.
 """
 
+import inspect
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -200,3 +202,25 @@ class FNO(nn.Module):
             for i in range(self.n_layers):
                 x = self.fno_blocks(x, i)
         return self.projection(x)
+
+
+_TFNO_DEFAULTS = {"factorization": "tucker", "rank": 0.1}
+# the FNO's arguments with the TFNO's defaults: what the registry records
+_TFNO_SIGNATURE = inspect.signature(FNO.__init__).replace(parameters=[
+    p.replace(default=_TFNO_DEFAULTS[name]) if name in _TFNO_DEFAULTS else p
+    for name, p in inspect.signature(FNO.__init__).parameters.items()
+])
+
+
+@register_model(name="TFNO")
+class TFNO(FNO):
+    """Tucker-factorized FNO: ``factorization="tucker"`` and ``rank=0.1`` by
+    default, the FNO's arguments otherwise (the JAX ``TFNO``)."""
+
+    def __init__(self, *args, **kwargs):
+        bound = _TFNO_SIGNATURE.bind(self, *args, **kwargs)
+        bound.apply_defaults()
+        del bound.arguments["self"]
+        super().__init__(**bound.arguments)
+
+    __init__.__signature__ = _TFNO_SIGNATURE

@@ -81,6 +81,8 @@ def main(argv=None) -> dict:
                           preprocess_fn=pre, postprocess_fn=post, device=device)
     print("compile seconds per bucket:",
           {b: round(s, 2) for b, s in srv.compile_seconds.items()})
+    weight_bytes = sum(p.numel() * p.element_size() for p in srv.model.parameters())
+    print(f"resident weights: {weight_bytes / 1e6:.1f} MB")
     latency_ms = {}
     for b in srv.batch_sizes:
         lat = srv.latency_probe(b, iters=args.probe_iters)
@@ -93,6 +95,7 @@ def main(argv=None) -> dict:
     finite = bool(torch.isfinite(out).all())
     print(f"request({n}) -> {tuple(out.shape)}, finite: {finite}")
     result = {"compile_seconds": srv.compile_seconds, "latency_ms": latency_ms,
+              "weight_bytes": weight_bytes,
               "ragged": {"batch": n, "shape": tuple(out.shape), "finite": finite}}
     if args.export:
         # the served copy: its weights are the probed endpoint's (bf16 under --bf16)

@@ -268,8 +268,10 @@ def test_unported_options_raise():
     # scan_layers is ported (tests/test_torch_scan_remat.py holds it to JAX)
     scanned = FNO((4, 4), 1, 1, 4, scan_layers=True, device="cpu")
     assert scanned(torch.zeros(1, 1, 8, 8)).shape == (1, 1, 8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FNO((4, 4), 1, 1, 4, factorization="tucker", device="cpu")
+    # factorized weights are ported (tests/test_torch_tfno.py holds them to JAX)
+    tucker = FNO((4, 4), 1, 1, 4, factorization="tucker", device="cpu")
+    assert tucker.fno_blocks.conv_0.spec.kind == "tucker"
+    assert tucker(torch.zeros(1, 1, 8, 8)).shape == (1, 1, 8, 8)
     conv = SpectralConv(2, 2, (4, 4), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         conv(torch.zeros(1, 2, 520, 8))

@@ -42,6 +42,9 @@ def test_port_sources_exist():
         "chip_smoke.py",
         "neuraloperator_tpu_torch/ops/fourier.py",
         "neuraloperator_tpu_torch/ops/contractions.py",
+        "neuraloperator_tpu_torch/ops/complex_einsum.py",
+        "neuraloperator_tpu_torch/tensor/__init__.py",
+        "neuraloperator_tpu_torch/tensor/factorized.py",
         "neuraloperator_tpu_torch/ops/spectral_contraction.py",
         "neuraloperator_tpu_torch/models/fno.py",
         "neuraloperator_tpu_torch/serving.py",
@@ -114,6 +117,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FNO((4, 4), 1, 1, 4)
+    from neuraloperator_tpu_torch.models import TFNO
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TFNO((4, 4), 1, 1, 4)
     model = FNO((4, 4), 1, 1, 4, n_layers=1, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CompiledForward(model, torch.zeros(1, 1, 8, 8))

@@ -20,7 +20,11 @@ published weights on the card against the CPU: each figure within 1e-4
 relative. Under the mixed-precision policy (bf16 pipelines on both
 devices, which differ in the order of f32 sums alone), card against CPU:
 one train step's loss within 1e-2 relative and its gradients together
-within relative l2 5e-2, evaluation figures within 10%.
+within relative l2 5e-2, evaluation figures within 10%. A Tucker TFNO's
+gradients on the card against the CPU: 1e-4 per parameter, as the FNO's;
+its "reconstructed" contraction against its "factorized" one: the output
+within 1e-5, each gradient within 1e-4 (the same arithmetic in another
+order: the weight rebuilt first, then K1-K3).
 """
 
 import json
@@ -645,3 +649,56 @@ def test_mixed_paths_launch_the_bf16_variants(card):
     after = tsc.launch_counts(by_dtype=True)
     assert {dt: after["mode_contraction"][dt] - before["mode_contraction"][dt]
             for dt in ("float32", "bfloat16")} == {"float32": 2, "bfloat16": 0}
+
+
+def _tfno_pair(**overrides):
+    return _small_pair(factorization="tucker", rank=0.1, **overrides)
+
+
+def test_factorized_tfno_step_on_the_card_matches_the_cpu(card):
+    """A Tucker TFNO's gradients (core, factors, every other parameter) on
+    the card against the same model's CPU gradients, the FNO's bound: its
+    factorized contraction is einsums on both devices and launches none of
+    K1-K3."""
+    model, cpu_model = _tfno_pair()
+    gen = torch.Generator().manual_seed(2)
+    x, y = torch.randn(4, 1, 64, 64, generator=gen), torch.randn(4, 1, 64, 64, generator=gen)
+    before = tsc.launch_counts()
+    (model(x.cuda()) - y.cuda()).square().mean().backward()
+    torch.cuda.synchronize()
+    assert tsc.launch_counts() == before
+    (cpu_model(x) - y).square().mean().backward()
+    cpu_grads = dict(cpu_model.named_parameters())
+    assert "fno_blocks.conv_0.w_core" in cpu_grads
+    for name, p in model.named_parameters():
+        ref = cpu_grads[name].grad.double()
+        err = float((p.grad.cpu().double() - ref).norm() / ref.norm())
+        assert err <= 1e-4, f"{name}: rel l2 {err}"
+
+
+def test_reconstructed_tfno_launches_k1_to_k3_and_matches_the_factorized_one(card):
+    """The same weights contracted "reconstructed": the weight rebuilt from
+    its factors goes through K1 (forward) and K2/K3 (backward) once per
+    layer, and the output and every gradient agree with the factorized
+    model's within 1e-5 and 1e-4."""
+    factorized, _ = _tfno_pair()
+    rebuilt, _ = _tfno_pair(implementation="reconstructed")
+    rebuilt.load_state_dict(factorized.state_dict())
+    x = torch.randn(4, 1, 64, 64, device="cuda")
+    outs, grads, launches = [], [], []
+    for m in (factorized, rebuilt):
+        before = tsc.launch_counts()
+        out = m(x)
+        out.square().mean().backward()
+        torch.cuda.synchronize()
+        after = tsc.launch_counts()
+        outs.append(out.detach().double())
+        grads.append({n: p.grad.double() for n, p in m.named_parameters()})
+        launches.append({k: after[k] - before[k] for k in after})
+    assert launches == [{"mode_contraction": 0, "mode_contraction_dx": 0,
+                         "mode_contraction_dw": 0},
+                        {"mode_contraction": 2, "mode_contraction_dx": 2,
+                         "mode_contraction_dw": 2}]
+    assert float((outs[1] - outs[0]).norm() / outs[0].norm()) <= 1e-5
+    for name, g in grads[0].items():
+        assert float((grads[1][name] - g).norm() / g.norm()) <= 1e-4, name
