@@ -12,7 +12,7 @@ Phases, each printed with its elapsed seconds as it goes:
 3. kernels: runs each kernel (K1 forward contraction, K2 its input
    gradient, K3 its weight gradient) against its plain PyTorch version at
    the flagship shapes (K1 at batches 1, 8 and 16, K2 and K3 at 8, each in
-   f32 and bf16), and times the kernel, the plain version and one library
+   f32 and bf16; and at the Darcy recipe's, phase 15), and times the kernel, the plain version and one library
    call on the device (``_timing.device_ms``: the launches queued behind a
    device-side wait, so the CUDA events do not time the host's enqueue
    rate) beside the kernel's bound and the host's time per call, through
@@ -151,7 +151,28 @@ Phases, each printed with its elapsed seconds as it goes:
    on the saved run (latency per bucket, resident bytes); (5)
    ``export_forward`` of it (symbolic batch) answered by a fresh
    ``python3`` process; (6) one graphed epoch under the mixed flags;
-15. prints one ``{"kernels": [...]}`` line, then, as the last line,
+15. darcy: the Darcy recipe (``scripts/train_darcy.py``'s defaults: the
+   FNO_Small2d width, 1000 training pairs at 16², tests at 16² and 32²)
+   through the port's ``scripts.train_darcy`` entry point, its data
+   generated on the host by ``load_darcy_flow_small`` into a temporary
+   directory, cut to 5 epochs of the loader loop: finite losses, the
+   training loss falling, the evaluations within twice the JAX script's
+   own figures for the same cut on the same files, K1 once per layer and
+   forward (steps and evaluation batches) and K2/K3 once per layer and
+   step; the loop step's ms, a profile of 10 loop steps (the device's idle
+   share), the peak memory, and one step of batch 2 card against CPU. The
+   kernels phase also checks and times K1 at batches 8 and 16 and K2/K3 at
+   8 at the recipe's 24 x 24 channels over 144 modes;
+16. layer options: each new option of the FNO family at the Darcy width,
+   card against CPU from the same seeded weights (a forward and one step's
+   H1 gradients, K1-K3 once per layer): domain padding, the four norms
+   (AdaIN on the blocks, with an embedding; BatchNorm's running
+   statistics), preactivation, the tanh stabilizer, ``conv_bias_kernel=3``,
+   complex data, a per-layer resolution scaling and a per-call
+   ``output_shape`` (16² in, 32² out); then the published weights forward on
+   a 128 x 1024 input (the rFFT/irFFT path), card against CPU, K1 once per
+   layer, the transforms in the profile;
+17. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -387,6 +408,48 @@ TFNO_PARAMS, TFNO_EPOCHS = 6_837_841, 2
 TFNO_IMPL_PAIRS, TFNO_IMPL_TOL, TFNO_IMPL_GRAD_TOL = 16, 1e-5, 1e-4
 # a batch-3 forward of the seeded TFNO, card against CPU: the serve phase's bound
 TFNO_FORWARD_TOL = 1e-4
+# the darcy phase: scripts/train_darcy.py's recipe (config.DarcyConfig: the
+# FNO_Small2d width, 16x16 modes, hidden 24, 4 layers; 1000 training pairs
+# at 16², tests of 100 at 16² and 50 at 32²; batch 8, evaluations at 16),
+# the data generated on the host by the port's load_darcy_flow_small, cut to
+# DARCY_EPOCHS epochs. Its contraction: 24 x 24 channels over 16 x 9 modes
+DARCY_CHANNELS, DARCY_MODES, DARCY_EVAL_BATCH = 24, 16 * 9, 16
+DARCY_EPOCHS = 5
+# The evaluations after the cut, within twice the JAX package's own figures
+# for the same cut on the same generated files: its scripts/train_darcy.py on
+# the CPU, 5 epochs from the seed-0 files (1000 + 100 + 100 pairs, which the
+# port's generator writes to the bit), read 16_l2 0.08044, 16_h1 0.10840,
+# 32_l2 0.10044, 32_h1 0.30641 (its Trainer's PRNGKey(0) init). The port
+# starts from its own seeded init, and a 5-epoch run moves by some 10% from
+# epoch to epoch (the JAX run's 16_l2 read 0.07485 then 0.08044); an
+# untrained model reads about 1.
+DARCY_BOUNDS = {"16_l2": 2 * 0.08044, "16_h1": 2 * 0.10840,
+                "32_l2": 2 * 0.10044, "32_h1": 2 * 0.30641}
+DARCY_PROFILE_STEPS = 10
+# the options phase: each new layer option of the FNO family at the Darcy
+# width (16x16 modes, hidden 24, 4 layers) on a batch of 8 at 16², card
+# against CPU from the same seeded weights: the forward within 1e-5 relative
+# l2 (TF32 off on both), one step's H1 gradients within 1e-4 per leaf
+# against the larger of the leaf's norm and 1% of the whole gradient's (a
+# conv bias before a norm has a zero gradient, in rounding noise); BatchNorm's
+# running statistics within 1e-5
+OPTION_FORWARD_TOL, OPTION_GRAD_TOL = 1e-5, 1e-4
+OPTION_CASES = {
+    "domain_padding": ({"domain_padding": 0.125}, {}),
+    "instance_norm": ({"norm": "instance_norm"}, {}),
+    "group_norm": ({"norm": "group_norm", "norm_groups": 4}, {}),
+    "batch_norm": ({"norm": "batch_norm"}, {}),
+    "preactivation": ({"preactivation": True}, {}),
+    "stabilizer": ({"stabilizer": "tanh"}, {}),
+    "conv_bias_kernel": ({"conv_bias_kernel": 3}, {}),
+    "complex_data": ({"complex_data": True}, {}),
+    "resolution_scaling_factor": ({"resolution_scaling_factor": [1, 2, 1, 0.5]}, {}),
+    "output_shape": ({}, {"output_shape": (32, 32)}),
+}
+# the FFT path at the flagship's width: the published weights on an input
+# whose last axis is over 512 points (rFFT in, irFFT out), card against CPU
+# within the serve phase's bound
+FFT_SHAPE = (1, 1, 128, 1024)
 
 # the profile tables' kinds of kernel, by words in a kernel's name (first match)
 KERNEL_KINDS = (("K1-K3", ("channel_contraction", "weight_grad")),
@@ -957,9 +1020,9 @@ class EpochOrders:
             yield {k: v[idx] for k, v in self.arrays.items()}
 
 
-def run_recipe_entry_point(argv, record: list) -> dict:
-    """``train_navier_stokes.main(argv)``, recording each evaluation's
-    metrics with the Trainer that ran it."""
+def run_recipe_entry_point(argv, record: list, script=None) -> dict:
+    """``script.main(argv)`` (``train_navier_stokes`` by default), recording
+    each evaluation's metrics with the Trainer that ran it."""
     from neuraloperator_tpu_torch.scripts import train_navier_stokes
     from neuraloperator_tpu_torch.training import Trainer
 
@@ -972,7 +1035,7 @@ def run_recipe_entry_point(argv, record: list) -> dict:
 
     Trainer.evaluate_all = recording
     try:
-        return train_navier_stokes.main(argv)
+        return (script or train_navier_stokes).main(argv)
     finally:
         Trainer.evaluate_all = evaluate_all
 
@@ -2688,6 +2751,262 @@ def tfno(processor, recipe_run: dict) -> dict:
             "serve_export": served, "mixed": mixed_run, "contraction": contraction}
 
 
+def grad_errors(card: dict, cpu: dict) -> dict:
+    """Per-leaf relative l2 of card gradients against CPU ones, each against
+    the larger of the leaf's norm and 1% of the whole gradient's."""
+    total = sum(float(g.double().square().sum()) for g in cpu.values()) ** 0.5
+    return {name: float((card[name].double() - ref.double()).norm())
+            / max(float(ref.double().norm()), 1e-2 * total) for name, ref in cpu.items()}
+
+
+def darcy_model(device: str, **kwargs):
+    """The Darcy recipe's FNO (config.DarcyConfig's model section) with
+    ``kwargs`` on top, seeded weights."""
+    from neuraloperator_tpu_torch.config import DarcyConfig
+    from neuraloperator_tpu_torch.models import get_model
+
+    config = DarcyConfig().to_dict()
+    config["model"].update(kwargs)
+    return get_model(config, device=device, generator=torch.Generator().manual_seed(SEED + 20))
+
+
+def darcy() -> dict:
+    """(15) the Darcy recipe through the port's scripts.train_darcy on the card."""
+    import contextlib
+    import re
+
+    from neuraloperator_tpu_torch.config import DarcyConfig
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
+    from neuraloperator_tpu_torch.data.datasets import darcy as tdarcy
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.scripts import train_darcy
+    from neuraloperator_tpu_torch.training import Trainer, build_optimizer
+
+    cfg = DarcyConfig()
+    n_layers = cfg.model.n_layers
+    data_dir = Path(tempfile.mkdtemp(prefix="darcy-"))
+    default_root, tdarcy.DATA_ROOT = tdarcy.DATA_ROOT, data_dir
+    try:
+        t0 = time.perf_counter()
+        train_loader, test_loaders, processor = tdarcy.load_darcy_flow_small(
+            n_train=cfg.data.n_train, n_tests=cfg.data.n_tests,
+            batch_size=cfg.data.batch_size, test_batch_sizes=cfg.data.test_batch_sizes,
+            test_resolutions=cfg.data.test_resolutions)
+        gen_s = time.perf_counter() - t0
+        steps = len(train_loader)
+        evals_per_epoch = sum(len(loader) for loader in test_loaders.values())
+        log(f"darcy: {len(train_loader.dataset)} training pairs at 16², tests "
+            f"{ {r: len(l.dataset) for r, l in test_loaders.items()} } generated on the host "
+            f"by load_darcy_flow_small in {gen_s:.1f} s into {data_dir.name}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        record: list = []
+        tee = Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            metrics = run_recipe_entry_point(["--opt.n_epochs", str(DARCY_EPOCHS)], record,
+                                             script=train_darcy)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches, by_dtype = read_launches(), read_launches_by_dtype()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        tdarcy.DATA_ROOT = default_root
+        shutil.rmtree(data_dir, ignore_errors=True)
+    only_dtype(by_dtype, "float32")
+    train_errs = [float(v) for v in re.findall(r"train=([0-9.eE+-]+)", tee.text())]
+    n_params = int(re.findall(r"^model parameters: (\d+)$", tee.text(), re.M)[-1])
+    log(f"darcy: {DARCY_EPOCHS} epochs of {steps} steps in {train_s:.1f} s; train losses "
+        f"{train_errs}; final {metrics}; {n_params} parameters; launches {launches}; peak "
+        f"{peak_mib:.0f} MiB")
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad or len(train_errs) != DARCY_EPOCHS or not all(map(math.isfinite, train_errs)):
+        raise AssertionError(f"darcy: non-finite metrics {bad} or train losses {train_errs}")
+    if not train_errs[-1] < train_errs[0]:
+        raise AssertionError(f"darcy: the training loss did not fall: {train_errs}")
+    misses = {k: (metrics[k], b) for k, b in DARCY_BOUNDS.items() if not metrics[k] <= b}
+    if misses:
+        raise AssertionError(f"darcy: evaluations above their bounds {misses}")
+    expected = {"mode_contraction": n_layers * DARCY_EPOCHS * (steps + evals_per_epoch),
+                "mode_contraction_dx": n_layers * DARCY_EPOCHS * steps,
+                "mode_contraction_dw": n_layers * DARCY_EPOCHS * steps}
+    if launches != expected or len(record) != DARCY_EPOCHS:
+        raise AssertionError(f"darcy: launched {launches} over {len(record)} evaluations, "
+                             f"expected {expected}")
+    # the Trainer's epoch_time of the last epoch: warm loop steps, ended by
+    # the float() of the summed loss, which waits for the device
+    step_ms = 1e3 * metrics["epoch_time"] / steps
+    model = record[-1][0].model
+    arrays = train_loader.dataset.arrays
+    n_prof = DARCY_PROFILE_STEPS * cfg.data.batch_size
+    loader = DataLoader(TensorDataset(arrays["x"][:n_prof], arrays["y"][:n_prof]),
+                        cfg.data.batch_size)
+    h1 = H1Loss(d=2)
+
+    def loop_steps():
+        trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device="cuda")
+        trainer.train(loader, {}, build_optimizer(cfg.opt, len(loader)), training_loss=h1)
+
+    loop_steps()  # warm
+    profile = profile_window(f"{DARCY_PROFILE_STEPS} darcy loop steps of batch "
+                             f"{cfg.data.batch_size}", loop_steps)
+
+    # one step of batch 2, card against CPU from the same weights
+    cpu_model = darcy_model("cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x2, y2 = arrays["x"][:2], arrays["y"][:2]
+    loss_gpu, grads_gpu = one_step(model, processor, x2, y2, "cuda")
+    loss_cpu, grads_cpu = one_step(cpu_model, processor, x2, y2, "cpu")
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err = grad_errors(grads_gpu, grads_cpu)
+    worst = max(grad_err, key=grad_err.get)
+    log(f"darcy: {step_ms:.3f} ms per loop step of batch {cfg.data.batch_size} (last "
+        f"epoch); one step of batch 2, card vs CPU: loss rel {loss_err:.2e} (tol "
+        f"{STEP_LOSS_TOL:.0e}), gradients max {grad_err[worst]:.2e} ({worst}, tol "
+        f"{STEP_GRAD_TOL:.0e})")
+    if not loss_err <= STEP_LOSS_TOL or not grad_err[worst] <= STEP_GRAD_TOL:
+        raise AssertionError(f"darcy: card and CPU steps differ: loss {loss_err}, "
+                             f"gradients {grad_err}")
+    return {"launches": launches, "launches_by_dtype": by_dtype, "metrics": metrics,
+            "train_errs": train_errs, "n_params": n_params, "generate_s": gen_s,
+            "train_s": train_s, "step_ms": step_ms, "peak_mib": peak_mib, "profile": profile,
+            "steps_per_epoch": steps, "evals_per_epoch": evals_per_epoch,
+            "step_loss_rel_err": loss_err, "step_grad_rel_l2_max": grad_err[worst]}
+
+
+def option_against_cpu(name: str, kwargs: dict, call: dict, blocks: bool = False) -> dict:
+    """One layer option at the Darcy width, card against CPU: the forward,
+    one step's H1 gradients, and the launches of the card's step."""
+    from neuraloperator_tpu_torch.layers import FNOBlocks
+    from neuraloperator_tpu_torch.losses import H1Loss
+
+    from neuraloperator_tpu_torch.config import DarcyConfig
+
+    width, n_layers = DARCY_CHANNELS, DarcyConfig().model.n_layers
+    gen = torch.Generator().manual_seed(SEED + 21)
+    if blocks:  # AdaIN's embedding is an argument of the blocks, not of the FNO
+        def build(device):
+            return FNOBlocks(width, width, (16, 16), n_layers=n_layers, device=device,
+                             generator=torch.Generator().manual_seed(SEED + 22), **kwargs)
+
+        x = torch.randn(TRAIN_BATCH, width, 16, 16, generator=gen)
+        emb = torch.randn(kwargs["ada_in_features"], generator=gen)
+    else:
+        def build(device):
+            return darcy_model(device, **kwargs)
+
+        x = torch.randn(TRAIN_BATCH, 1, 16, 16, generator=gen)
+        if kwargs.get("complex_data"):
+            x = torch.complex(x, torch.randn(TRAIN_BATCH, 1, 16, 16, generator=gen))
+    model = build("cuda")
+    cpu_model = build("meta").to_empty(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    for (_, b), (_, cb) in zip(model.named_buffers(), cpu_model.named_buffers()):
+        cb.copy_(b.cpu())
+    h1 = H1Loss(d=2)
+    outs, grads, target = [], [], None
+    for m, device in ((model, "cuda"), (cpu_model, "cpu")):
+        if device == "cuda":
+            torch.cuda.synchronize()
+            reset_launches()
+        if blocks:
+            out = x.to(device)
+            for i in range(n_layers):
+                out = m(out, i, ada_in_embedding=emb.to(device))
+        else:
+            out = m(x.to(device), **call)
+        flat = torch.cat([out.real, out.imag], dim=1) if out.is_complex() else out
+        if target is None:
+            target = 1.0 + torch.randn(flat.shape, generator=gen)
+        h1(flat, target.to(device)).backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches, by_dtype = read_launches(), read_launches_by_dtype()
+        outs.append(out.detach().cpu().to(torch.complex128))
+        grads.append({n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+    fwd_err = float((outs[0] - outs[1]).norm() / outs[1].norm())
+    grad_err = grad_errors(grads[0], grads[1])
+    worst = max(grad_err, key=grad_err.get)
+    stats_err = max([float((b.cpu() - cb).norm() / cb.norm()) for (_, b), (_, cb)
+                     in zip(model.named_buffers(), cpu_model.named_buffers())] or [0.0])
+    # the blocks' input is the data: the first layer's K2 has no gradient to make
+    expected = {"mode_contraction": n_layers,
+                "mode_contraction_dx": n_layers - 1 if blocks else n_layers,
+                "mode_contraction_dw": n_layers}
+    log(f"options: {name}: output {tuple(outs[0].shape)}, forward rel_l2 {fwd_err:.2e}, "
+        f"gradients max {grad_err[worst]:.2e} ({worst}), running statistics "
+        f"{stats_err:.2e}; launches {launches}")
+    if not (fwd_err <= OPTION_FORWARD_TOL and grad_err[worst] <= OPTION_GRAD_TOL
+            and stats_err <= OPTION_FORWARD_TOL):
+        raise AssertionError(f"options: {name}: card and CPU differ: forward {fwd_err}, "
+                             f"gradients {grad_err}, statistics {stats_err}")
+    if launches != expected:
+        raise AssertionError(f"options: {name}: launched {launches}, expected {expected}")
+    return {"forward_rel_l2": fwd_err, "grad_rel_l2_max": grad_err[worst],
+            "stats_rel_l2": stats_err, "launches": launches, "launches_by_dtype": by_dtype,
+            "shape": list(outs[0].shape)}
+
+
+def fft_path_at_flagship_width() -> dict:
+    """The published weights forward on a last axis over 512 points: card
+    against CPU, K1 once per layer, and the rFFT and irFFT in the profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, _ = load_flagship_on("cuda")
+    cpu_model, _ = load_flagship_on("cpu")
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    x = torch.randn(*FFT_SHAPE, generator=torch.Generator().manual_seed(SEED + 23))
+    with torch.no_grad():
+        model(x.cuda())  # warm: cuFFT plans, DFT matrices
+        torch.cuda.synchronize()
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = model(x.cuda())
+            torch.cuda.synchronize()
+            forward_ms = 1e3 * (time.perf_counter() - t0)
+        launches, by_dtype = read_launches(), read_launches_by_dtype()
+        want = cpu_model(x)
+    err = rel_l2_t(out.cpu(), want)
+    ops = {e.key: e for e in prof.key_averages()}
+    fft_ops = {k: round(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+                        / 1e3, 4) for k, e in ops.items() if "fft" in k.lower()}
+    fft_kernels = sorted({e.name for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and "fft" in e.name.lower()})
+    log(f"options: FFT path at the flagship's width, input {FFT_SHAPE}: card vs CPU rel_l2 "
+        f"{err:.2e} (tol {SERVE_TOL:.0e}); forward {forward_ms:.2f} ms (host clock, "
+        f"profiled); launches {launches}; FFT ops (device ms) {fft_ops}; kernels "
+        f"{[k[:60] for k in fft_kernels[:6]]}")
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"the FFT path differs from the CPU: rel_l2 {err}")
+    if launches != {"mode_contraction": n_layers, "mode_contraction_dx": 0,
+                    "mode_contraction_dw": 0}:
+        raise AssertionError(f"the FFT path launched {launches}")
+    if not any("r2c" in k for k in fft_ops) or not any("c2r" in k for k in fft_ops):
+        raise AssertionError(f"no rFFT and irFFT in the profile: {sorted(ops)}")
+    return {"rel_l2": err, "forward_ms": forward_ms, "launches": launches,
+            "launches_by_dtype": by_dtype, "fft_ops_ms": fft_ops, "fft_kernels": fft_kernels}
+
+
+def layer_options() -> dict:
+    """(16) each new layer option at the Darcy width, card against CPU, and
+    the FFT path at the flagship's width."""
+    cases = {name: option_against_cpu(name, kwargs, call)
+             for name, (kwargs, call) in OPTION_CASES.items()}
+    cases["ada_in"] = option_against_cpu("ada_in", {"norm": "ada_in", "ada_in_features": 8},
+                                         {}, blocks=True)
+    fft = fft_path_at_flagship_width()
+    runs = [*cases.values(), fft]
+    by_dtype = {name: {"float32": sum(r["launches_by_dtype"][name]["float32"] for r in runs),
+                       "bfloat16": sum(r["launches_by_dtype"][name]["bfloat16"] for r in runs)}
+                for name in kernel_specs()}
+    only_dtype(by_dtype, "float32")
+    return {"launches": {name: sum(c.values()) for name, c in by_dtype.items()},
+            "launches_by_dtype": by_dtype, "cases": cases, "fft_path": fft}
+
+
 def kernel_line(variants, paths) -> list:
     """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
     with its launches summed over the paths, by path, by dtype, and by path
@@ -2695,7 +3014,8 @@ def kernel_line(variants, paths) -> list:
     kernels = []
     for name, spec in kernel_specs().items():
         own = [v for v in variants if v["name"] == name]
-        main = next(v for v in own if v["dtype"] == "float32" and v["batch"] == TRAIN_BATCH)
+        main = next(v for v in own if v["dtype"] == "float32" and v["batch"] == TRAIN_BATCH
+                    and v["shape"]["M"] == MODES)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2744,10 +3064,21 @@ def main() -> None:
                 for dt in dtypes for b in (*BUCKETS, EVAL_BATCH)]
     variants += [dict(name=name, **check_kernel(name, TRAIN_BATCH, dt))
                  for name in ("mode_contraction_dx", "mode_contraction_dw") for dt in dtypes]
-    k3 = {v["dtype"]: v["ms"] for v in variants
-          if v["name"] == "mode_contraction_dw" and v["batch"] == TRAIN_BATCH}
+    # the Darcy recipe's shapes: 24 x 24 channels over 144 modes, f32, K1 at
+    # the step's batch and the evaluation's, K2 and K3 at the step's
+    variants += [dict(name=name, recipe="darcy",
+                      **check_kernel(name, b, torch.float32,
+                                     channels=(DARCY_CHANNELS, DARCY_CHANNELS),
+                                     modes=DARCY_MODES))
+                 for name, b in (("mode_contraction", TRAIN_BATCH),
+                                 ("mode_contraction", DARCY_EVAL_BATCH),
+                                 ("mode_contraction_dx", TRAIN_BATCH),
+                                 ("mode_contraction_dw", TRAIN_BATCH))]
+    k3 = {v["dtype"]: v["ms"] for v in variants if v["name"] == "mode_contraction_dw"
+          and v["batch"] == TRAIN_BATCH and v["shape"]["M"] == MODES}
     k1 = next(v["ms"] for v in variants if v["name"] == "mode_contraction"
-              and v["batch"] == TRAIN_BATCH and v["dtype"] == "float32")
+              and v["batch"] == TRAIN_BATCH and v["dtype"] == "float32"
+              and v["shape"]["M"] == MODES)
     log(f"K3 at B={TRAIN_BATCH}: f32 {k3['float32']:.4f} ms, bf16 {k3['bfloat16']:.4f} ms; "
         f"K3 f32 / K1 f32 = {k3['float32'] / k1:.3f}")
     # off the flagship shape (checked, not timed)
@@ -2771,12 +3102,15 @@ def main() -> None:
     quantize_run = quantize_export(processor, served)
     remat_scan_run = remat_scan(processor, recipe_run)
     tfno_run = tfno(processor, recipe_run)
+    darcy_run = darcy()
+    layer_options_run = layer_options()
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
                                      "recipe": recipe_run, "mixed": mixed_run,
                                      "superres": superres_run, "rollout": rollout_run,
                                      "options": options_run, "quantize_export": quantize_run,
-                                     "remat_scan": remat_scan_run, "tfno": tfno_run})
+                                     "remat_scan": remat_scan_run, "tfno": tfno_run,
+                                     "darcy": darcy_run, "layer_options": layer_options_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
@@ -2805,7 +3139,11 @@ def main() -> None:
         f"{tfno_run['mixed']['graphed_step_ms']:.2f} ms), batch-16 eval forward "
         f"{tfno_run['train']['eval16_ms']:.2f} ms, peak {tfno_run['train']['eval16_peak_mib']:.0f} "
         f"MiB, served latency ms {tfno_run['serve_export']['latency_ms']}, artifact "
-        f"{tfno_run['serve_export']['export_mb']:.1f} MB")
+        f"{tfno_run['serve_export']['export_mb']:.1f} MB; darcy {darcy_run['metrics']}, "
+        f"loop step {darcy_run['step_ms']:.3f} ms, peak {darcy_run['peak_mib']:.0f} MiB; "
+        f"layer options worst forward "
+        f"{max(c['forward_rel_l2'] for c in layer_options_run['cases'].values()):.2e}, "
+        f"FFT path rel_l2 {layer_options_run['fft_path']['rel_l2']:.2e}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

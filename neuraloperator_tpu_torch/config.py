@@ -167,5 +167,32 @@ class DistributedConfig(ConfigBase):
     seed: int = 666
 
 
-__all__ = ["ConfigBase", "DistributedConfig", "FNOModelConfig", "FNO_Medium2d", "FNO_Small2d",
-           "OptConfig", "TFNO_Medium2d", "make_config_from_cli"]
+@dataclass
+class DarcyDataConfig(ConfigBase):
+    batch_size: int = 8
+    n_train: int = 1000
+    train_resolution: int = 16
+    n_tests: List[int] = field(default_factory=lambda: [100, 50])
+    test_resolutions: List[int] = field(default_factory=lambda: [16, 32])
+    test_batch_sizes: List[int] = field(default_factory=lambda: [16, 16])
+    encode_input: bool = False
+    encode_output: bool = True
+
+
+@dataclass
+class DarcyConfig(ConfigBase):
+    """The Darcy recipe (``scripts/train_darcy.py``): FNO_Small2d's width
+    (16x16 modes, hidden 24, 4 layers), 300 epochs of H1 at lr 5e-3 with
+    StepLR(60, 0.5)."""
+
+    model: FNOModelConfig = field(default_factory=FNOModelConfig)
+    opt: OptConfig = field(default_factory=OptConfig)
+    data: DarcyDataConfig = field(default_factory=DarcyDataConfig)
+    distributed: DistributedConfig = field(default_factory=DistributedConfig)
+    verbose: bool = True
+    eval_interval: int = 1
+
+
+__all__ = ["ConfigBase", "DarcyConfig", "DarcyDataConfig", "DistributedConfig",
+           "FNOModelConfig", "FNO_Medium2d", "FNO_Small2d", "OptConfig", "TFNO_Medium2d",
+           "make_config_from_cli"]

@@ -1,6 +1,8 @@
+from .darcy import DarcyDataset, load_darcy_flow_small, load_darcy_pt
 from .navier_stokes import NavierStokesDataset, load_navier_stokes_pt
 from .pt_dataset import PTDataset, load_pt_as_numpy
 from .tensor_dataset import DataLoader, TensorDataset
 
-__all__ = ["DataLoader", "NavierStokesDataset", "PTDataset", "TensorDataset",
-           "load_navier_stokes_pt", "load_pt_as_numpy"]
+__all__ = ["DarcyDataset", "DataLoader", "NavierStokesDataset", "PTDataset", "TensorDataset",
+           "load_darcy_flow_small", "load_darcy_pt", "load_navier_stokes_pt",
+           "load_pt_as_numpy"]

@@ -1,4 +1,6 @@
-"""Grid positional embedding (port of ``neuraloperator_tpu/layers/embeddings.py``)."""
+"""Grid positional embeddings (port of ``GridEmbeddingND``,
+``GridEmbedding2D``, ``regular_grid_nd`` and ``regular_grid_2d`` of
+``neuraloperator_tpu/layers/embeddings.py``)."""
 
 import functools
 from typing import List, Sequence, Tuple
@@ -23,6 +25,13 @@ def regular_grid_nd(
     ]
     grids = np.meshgrid(*axes, indexing="ij")
     return [torch.from_numpy(g).to(device) for g in grids]
+
+
+def regular_grid_2d(spatial_dims: Sequence[int],
+                    grid_boundaries=((0.0, 1.0), (0.0, 1.0)), device="cpu"):
+    """The two coordinate grids of a 2-D domain."""
+    gx, gy = regular_grid_nd(spatial_dims, grid_boundaries, device)
+    return gx, gy
 
 
 @functools.lru_cache(maxsize=32)
@@ -63,3 +72,10 @@ class GridEmbeddingND:
             data.dtype,
         )
         return torch.cat([data, grid.expand(data.shape[0], -1, *grid.shape[2:])], dim=1)
+
+
+class GridEmbedding2D(GridEmbeddingND):
+    """The 2-D grid embedding."""
+
+    def __init__(self, in_channels: int, grid_boundaries=((0, 1), (0, 1))):
+        super().__init__(in_channels, dim=2, grid_boundaries=list(grid_boundaries))

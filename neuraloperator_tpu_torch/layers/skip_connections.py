@@ -63,6 +63,36 @@ class Flattened1dConv(nn.Module):
         return y.reshape(b, self.out_channels, *spatial)
 
 
+class LocalConvSkip(nn.Module):
+    """Local N-D convolution, kernel > 1, "SAME" padding (the
+    ``conv_bias_kernel > 1`` option of the Fourier layers).
+
+    ``kernel`` is (out, in, k, ..., k), flax ``lecun_normal`` on that shape,
+    as the JAX module declares it. The padding is lax's "SAME": ``k - 1`` in
+    all, ``(k - 1) // 2`` before and the rest after, so an even kernel puts
+    its extra pad after, as ``lax.conv_general_dilated`` does. The
+    convolution is a cross-correlation in the promoted dtype of the input
+    and the kernel.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, n_dim: int, kernel_size: int, *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if n_dim not in (1, 2, 3):
+            raise ValueError(f"LocalConvSkip supports 1 to 3 spatial dims, got {n_dim}")
+        self.n_dim, self.kernel_size = n_dim, kernel_size
+        self.kernel = _init.lecun_normal(
+            (out_channels, in_channels) + (kernel_size,) * n_dim, device, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lo = (self.kernel_size - 1) // 2
+        hi = self.kernel_size - 1 - lo
+        dtype = torch.promote_types(x.dtype, self.kernel.dtype)
+        x = nn.functional.pad(x.to(dtype), [lo, hi] * self.n_dim)
+        conv = (nn.functional.conv1d, nn.functional.conv2d, nn.functional.conv3d)[self.n_dim - 1]
+        return conv(x, self.kernel.to(dtype))
+
+
 def skip_connection(
     in_features: int,
     out_features: int,

@@ -1,30 +1,44 @@
 """Spectral convolution (port of ``neuraloperator_tpu/layers/spectral_convolution.py``).
 
-Ported branch: real data, Hermitian symmetry enforced, every axis at most
-512 points, ``fno_block_precision`` "full", "half" or "mixed",
-``weight_dtype`` "float32" or "bfloat16"; dense, CP, Tucker or TT weights
-(``factorization``, ``rank``, ``fixed_rank_modes``), contracted
-``"factorized"`` or ``"reconstructed"`` (``implementation``), separable or
-not. The forward is
+Every branch of the JAX layer: real or complex data, ``fno_block_precision``
+"full", "half" or "mixed", ``weight_dtype`` "float32" or "bfloat16"; dense,
+CP, Tucker or TT weights (``factorization``, ``rank``,
+``fixed_rank_modes``), contracted ``"factorized"`` or ``"reconstructed"``
+(``implementation``), separable or not; ``resolution_scaling_factor``, a
+per-call ``output_shape`` and ``n_modes``; Hermitian symmetry enforced or
+not. The forward on real data is
 
-1. ``rdft_gather_last`` along the last axis, then ``dft_gather_axis`` on
-   each earlier axis (truncated DFT matmuls);
+1. along the last axis ``rdft_gather_last`` (a truncated DFT matmul), or,
+   over 512 points, ``torch.fft.rfft`` (cuFFT on the card) and a slice of
+   its low modes; then ``dft_gather_axis`` on each earlier axis, at any size;
 2. the per-mode complex contraction (``ops/contractions.contract_block``):
    a dense weight, or one rebuilt from its factors (``"reconstructed"``),
    through ``contract_dense`` (the CUDA kernels on the card), factors
    through the complex einsums of ``contract_cp/tucker/tt``;
-3. ``_shrink_centered``, ``dft_scatter_axis`` on the earlier axes, then
-   ``rdft_scatter_last`` (inverse DFT matmuls with structural Hermitian
-   enforcement);
+3. ``_shrink_centered`` to the output size, ``dft_scatter_axis`` on the
+   earlier axes, then ``rdft_scatter_last`` (structural Hermitian
+   enforcement), or, when the output's last axis is over 512 points or the
+   symmetry is not enforced, the low modes zero-padded, the DC (and
+   even-size Nyquist) imaginary parts zeroed when enforcing, and
+   ``torch.fft.irfft``;
 4. the bias.
+
+On complex data the spectrum is ``torch.fft.fftn`` over every spatial axis,
+its centered block gathered (``gather_center_modes``), contracted, shrunk,
+scattered back (``scatter_center_modes``) and inverted by ``ifftn``; the
+output is complex. Both FFT branches reach the same contraction as the
+DFT path, so the contraction kernels run on every branch.
 
 "full" computes in float32 whatever the input's dtype. "half" and "mixed"
 round where the JAX function rounds: "half" first rounds x through
-bfloat16; both run the forward DFTs on bfloat16 x, contract bfloat16
-operands with float32 sums (the kernels' bf16 variants; bf16 products of
-the einsums), round the contraction's output to bfloat16 for the inverse
-DFTs, and return bfloat16 (the last inverse sums in float32, then rounds),
-the bias added in it.
+bfloat16 (the real part of complex x, as JAX's cast keeps it); the DFT
+path runs its forward matmuls on bfloat16 x, the rFFT path transforms x in
+float32 and rounds the kept modes to bfloat16, the complex path rounds the
+whole spectrum through bfloat16; all contract bfloat16 operands with
+float32 sums (the kernels' bf16 variants; bf16 products of the einsums),
+round the contraction's output to bfloat16 on real data, and return
+bfloat16 (on complex data the real part, as JAX's cast of a complex result
+to bfloat16 keeps it), the bias added in it.
 
 Weights keep the JAX storage layout and names: one parameter per factor,
 ``w_weight`` (dense, ``(2, in, out, m1..mN)``; ``(2, in, m1..mN)``
@@ -39,19 +53,25 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from .._common import not_ported, resolve_device
+from .._common import resolve_device
 from ..ops.contractions import contract_block
 from ..ops.fourier import (
     dft_gather_axis,
     dft_scatter_axis,
+    gather_center_modes,
     rdft_gather_last,
     rdft_scatter_last,
     resolve_weight_slices,
+    scatter_center_modes,
+    scatter_low_modes_last,
 )
 from ..tensor.factorized import FactorizationSpec, init_factors, resolve_spec, slice_factors
+from ..utils import validate_scaling_factor
 from . import _init
+from .resample import resample
 
-# inputs wider than this go through an FFT in the JAX package
+# a last axis wider than this goes through an FFT in the JAX package; earlier
+# axes take the DFT matmul at any size
 MAX_DFT_AXIS = 512
 
 
@@ -71,7 +91,8 @@ WEIGHT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class SpectralConv(nn.Module):
-    """N-dimensional spectral convolution over real data."""
+    """N-dimensional spectral convolution; ``forward(x, output_shape=None,
+    n_modes=None)`` takes the JAX layer's per-call overrides."""
 
     def __init__(
         self,
@@ -97,8 +118,6 @@ class SpectralConv(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if complex_data:
-            raise not_ported("SpectralConv complex_data=True", "the other families")
         if fno_block_precision not in PRECISIONS:
             raise ValueError(
                 f"fno_block_precision must be one of {PRECISIONS}, got {fno_block_precision!r}"
@@ -111,12 +130,6 @@ class SpectralConv(nn.Module):
             raise ValueError(
                 f"implementation must be 'reconstructed' or 'factorized', got {implementation}"
             )
-        if resolution_scaling_factor is not None:
-            raise not_ported("SpectralConv resolution_scaling_factor", "the other families")
-        if not enforce_hermitian_symmetry:
-            raise not_ported(
-                "SpectralConv enforce_hermitian_symmetry=False", "the other families"
-            )
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.n_modes = tuple(
@@ -126,7 +139,11 @@ class SpectralConv(nn.Module):
         self.fno_block_precision = fno_block_precision
         self.separable = separable
         self.implementation = implementation
-        halved = halve_last_mode(self.n_modes, complex_data=False)
+        self.complex_data = complex_data
+        self.enforce_hermitian_symmetry = enforce_hermitian_symmetry
+        self.resolution_scaling_factor = validate_scaling_factor(
+            resolution_scaling_factor, len(self.n_modes))
+        halved = halve_last_mode(self.n_modes, complex_data)
         if max_n_modes is None:
             self.max_n_modes = halved
         else:
@@ -174,27 +191,41 @@ class SpectralConv(nn.Module):
             out[name] = (w[0], w[1])
         return out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, output_shape: Optional[Sequence[int]] = None,
+                n_modes: Optional[Sequence[int]] = None) -> torch.Tensor:
         return spectral_conv_forward(
             x,
             self.spec,
             self.factors(),
             self.bias,
-            n_modes=halve_last_mode(self.n_modes, complex_data=False),
+            n_modes=halve_last_mode(self.n_modes if n_modes is None else n_modes,
+                                    self.complex_data),
             max_n_modes=self.max_n_modes,
+            complex_data=self.complex_data,
             separable=self.separable,
             implementation=self.implementation,
             fft_norm=self.fft_norm,
             fno_block_precision=self.fno_block_precision,
+            enforce_hermitian_symmetry=self.enforce_hermitian_symmetry,
+            resolution_scaling_factor=self.resolution_scaling_factor,
+            output_shape=output_shape,
         )
 
-    def transform(self, x: torch.Tensor) -> torch.Tensor:
-        """Resample a skip branch to this layer's output resolution.
-
-        Without resolution scaling the output resolution is the input's,
-        so this is the identity.
-        """
-        return x
+    def transform(self, x: torch.Tensor,
+                  output_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Resample a skip branch to this layer's output resolution
+        (``layers/resample.py``); the identity when the size does not change."""
+        in_shape = tuple(x.shape[2:])
+        rsf = self.resolution_scaling_factor
+        if output_shape is not None:
+            out_shape = tuple(output_shape)
+        elif rsf is not None:
+            out_shape = tuple(round(s * r) for s, r in zip(in_shape, rsf))
+        else:
+            out_shape = in_shape
+        if in_shape == out_shape:
+            return x
+        return resample(x, 1.0, list(range(2, x.ndim)), output_shape=out_shape)
 
 
 def spectral_conv_forward(
@@ -205,15 +236,21 @@ def spectral_conv_forward(
     *,
     n_modes: Sequence[int],
     max_n_modes: Sequence[int],
+    complex_data: bool = False,
     separable: bool = False,
     implementation: str = "reconstructed",
     fft_norm: str = "forward",
     fno_block_precision: str = "full",
+    enforce_hermitian_symmetry: bool = True,
+    resolution_scaling_factor: Optional[Sequence[float]] = None,
+    output_shape: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """Functional core: x (b, in, d1..dN), the weight's ``spec`` and its
     factors ``params`` (``{name: (re, im)}``).
 
-    ``n_modes`` has the last dim already halved (``halve_last_mode``).
+    ``n_modes`` has the last dim already halved on real data
+    (``halve_last_mode``); ``resolution_scaling_factor`` is one factor per
+    dim (``validate_scaling_factor``), overridden by ``output_shape``.
     """
     order = len(n_modes)
     mode_sizes = list(x.shape[2:])
@@ -221,55 +258,91 @@ def spectral_conv_forward(
         raise ValueError(
             f"input has {len(mode_sizes)} spatial dims but n_modes has {order}"
         )
-    if max(mode_sizes) > MAX_DFT_AXIS:
-        raise not_ported(
-            f"SpectralConv on axes over {MAX_DFT_AXIS} points (the FFT path)",
-            "the other families",
-        )
-    # "half" and "mixed": bf16 operands with f32 sums, rounded where the
-    # JAX function rounds. On real data the two are one path: "half"'s
-    # rounding of x through bf16 is the cast of the DFT input.
     mixed = fno_block_precision in ("half", "mixed")
-    x = x.to(torch.bfloat16 if mixed else torch.float32)
+    if fno_block_precision == "half":
+        # JAX's cast through bfloat16 keeps the real part of complex x
+        x = (x.real if x.is_complex() else x).to(torch.bfloat16)
 
     fft_size = list(mode_sizes)
-    fft_size[-1] = fft_size[-1] // 2 + 1
+    if not complex_data:
+        fft_size[-1] = fft_size[-1] // 2 + 1
     axes = list(range(-order, 0))
 
     # active modes sit at the centre of the stored weight (start of the
-    # last dim); the slices index its (in, out, modes...) dims
+    # last dim on real data); the slices index its (in, out, modes...) dims
     slices = resolve_weight_slices(
-        fft_size, n_modes, max_n_modes, separable=separable, complex_data=False
+        fft_size, n_modes, max_n_modes, separable=separable, complex_data=complex_data
     )
     spec, params = slice_factors(spec, params, slices)
     kept = list(spec.shape[1 if separable else 2:])
 
-    kept_last = min(kept[-1], fft_size[-1])
-    br, bi = rdft_gather_last(x, kept_last, fft_norm)
-    for i, ax in enumerate(axes[:-1]):
-        br, bi = dft_gather_axis(br, bi, min(kept[i], mode_sizes[i]), ax, fft_norm)
-    if kept_last < kept[-1]:
-        # weight wider than the spectrum: trim its last-mode factor
-        trim = [slice(None)] * spec.order
-        trim[-1] = slice(0, kept_last)
-        spec, params = slice_factors(spec, params, trim)
+    if complex_data:
+        xf = torch.fft.fftn(x if x.is_complex() else x.float(), norm=fft_norm, dim=axes)
+        spectrum = torch.stack([xf.real, xf.imag])
+        if mixed:
+            spectrum = spectrum.to(torch.bfloat16).float()
+        block = gather_center_modes(spectrum, kept, axes)
+        br, bi = block[0], block[1]
+    else:
+        kept_last = min(kept[-1], fft_size[-1])
+        if mode_sizes[-1] <= MAX_DFT_AXIS:
+            # the DFT matmuls run on bfloat16 x under "half" and "mixed"
+            br, bi = rdft_gather_last(x.to(torch.bfloat16 if mixed else torch.float32),
+                                      kept_last, fft_norm)
+        else:
+            xf = torch.fft.rfft(x.float(), dim=-1, norm=fft_norm)[..., :kept_last]
+            br, bi = xf.real, xf.imag
+            if mixed:
+                br, bi = br.to(torch.bfloat16), bi.to(torch.bfloat16)
+        for i, ax in enumerate(axes[:-1]):
+            br, bi = dft_gather_axis(br, bi, min(kept[i], mode_sizes[i]), ax, fft_norm)
+        if kept_last < kept[-1]:
+            # weight wider than the spectrum: trim its last-mode factor
+            trim = [slice(None)] * spec.order
+            trim[-1] = slice(0, kept_last)
+            spec, params = slice_factors(spec, params, trim)
 
     out_r, out_i = contract_block((br, bi), spec, params, separable=separable,
                                   implementation=implementation,
                                   compute_dtype=torch.bfloat16 if mixed else None)
 
-    half = mode_sizes[-1] // 2 + 1
-    out_r = _shrink_centered(out_r, mode_sizes[:-1], axes[:-1])
-    out_i = _shrink_centered(out_i, mode_sizes[:-1], axes[:-1])
-    out_r = out_r[..., : min(out_r.shape[-1], half)]
-    out_i = out_i[..., : min(out_i.shape[-1], half)]
+    out_sizes = list(mode_sizes)
+    if resolution_scaling_factor is not None and output_shape is None:
+        out_sizes = [round(s * r) for s, r in zip(mode_sizes, resolution_scaling_factor)]
+    if output_shape is not None:
+        out_sizes = list(output_shape)
+
+    if complex_data:
+        # the block is (b, o, modes...): its mode axes are the stack's too
+        block = _shrink_centered(torch.stack([out_r, out_i]), out_sizes, axes)
+        full = scatter_center_modes(block, out_sizes, axes)
+        y = torch.fft.ifftn(torch.complex(full[0], full[1]), dim=axes, norm=fft_norm)
+    else:
+        half = out_sizes[-1] // 2 + 1
+        out_r = _shrink_centered(out_r, out_sizes[:-1], axes[:-1])
+        out_i = _shrink_centered(out_i, out_sizes[:-1], axes[:-1])
+        out_r = out_r[..., : min(out_r.shape[-1], half)]
+        out_i = out_i[..., : min(out_i.shape[-1], half)]
+        if mixed:
+            out_r, out_i = out_r.to(torch.bfloat16), out_i.to(torch.bfloat16)
+        for i, ax in enumerate(axes[:-1]):
+            out_r, out_i = dft_scatter_axis(out_r, out_i, out_sizes[i], ax, fft_norm)
+        if out_sizes[-1] <= MAX_DFT_AXIS and enforce_hermitian_symmetry:
+            y = rdft_scatter_last(out_r, out_i, out_sizes[-1], fft_norm)
+        else:
+            out_r = scatter_low_modes_last(out_r.float(), half)
+            out_i = scatter_low_modes_last(out_i.float(), half)
+            if enforce_hermitian_symmetry:
+                # no host-to-device copy: the mask is filled on the device
+                keep = torch.ones(half, dtype=torch.bool, device=out_i.device)
+                keep[0] = False
+                if out_sizes[-1] % 2 == 0:
+                    keep[half - 1] = False
+                out_i = torch.where(keep, out_i, 0.0)
+            y = torch.fft.irfft(torch.complex(out_r, out_i), n=out_sizes[-1], dim=-1,
+                                norm=fft_norm)
     if mixed:
-        out_r, out_i = out_r.to(torch.bfloat16), out_i.to(torch.bfloat16)
-    for i, ax in enumerate(axes[:-1]):
-        out_r, out_i = dft_scatter_axis(out_r, out_i, mode_sizes[i], ax, fft_norm)
-    y = rdft_scatter_last(out_r, out_i, mode_sizes[-1], fft_norm)
-    if mixed:
-        y = y.to(torch.bfloat16)
+        y = (y.real if y.is_complex() else y).to(torch.bfloat16)
     if bias is not None:
         y = y + bias[None].to(y.dtype)
     return y

@@ -1,12 +1,14 @@
 """Fourier Neural Operator and its Tucker-factorized variant (port of
 ``neuraloperator_tpu/models/fno.py``).
 
-Grid embedding -> lifting ChannelMLP -> ``n_layers`` Fourier layers ->
-projection ChannelMLP. The layers are unrolled (``FNOBlocks``), or, with
-``scan_layers``, one layer over stacked parameters (``ScanFNOBlocks``);
-``remat`` recomputes each layer's activations in the backward. The
-constructor takes the JAX module's fields, so a ``model_metadata.json``
-builds either. ``TFNO`` is the FNO with rank-0.1 Tucker weights by default.
+Grid embedding -> lifting ChannelMLP -> optional domain padding ->
+``n_layers`` Fourier layers -> unpadding -> projection ChannelMLP; on
+complex data the lifting and projection are ``ComplexValued`` pairs. The
+layers are unrolled (``FNOBlocks``), or, with ``scan_layers``, one layer
+over stacked parameters (``ScanFNOBlocks``); ``remat`` recomputes each
+layer's activations in the backward. The constructor takes the JAX
+module's fields, so a ``model_metadata.json`` builds either. ``TFNO`` is
+the FNO with rank-0.1 Tucker weights by default.
 """
 
 import inspect
@@ -15,10 +17,12 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from .._common import not_ported, resolve_device
+from .._common import resolve_device
 from ..layers.channel_mlp import ChannelMLP, gelu
-from ..layers.embeddings import GridEmbeddingND
+from ..layers.complex import ComplexValued
+from ..layers.embeddings import GridEmbedding2D, GridEmbeddingND
 from ..layers.fno_block import FNOBlocks
+from ..layers.padding import DomainPadding
 from ..layers.scan_fno_block import ScanFNOBlocks, run_layer
 from ..layers.spectral_convolution import SpectralConv
 from .base_model import register_model
@@ -26,9 +30,10 @@ from .base_model import register_model
 
 @register_model(name="FNO")
 class FNO(nn.Module):
-    """N-d FNO over real data; ``forward(x)`` maps (b, in, d1..dN) -> (b, out, d1..dN).
+    """N-d FNO; ``forward(x)`` maps (b, in, d1..dN) -> (b, out, o1..oN).
 
-    ``device`` defaults to ``"cuda"`` and raises when there is no card
+    ``positional_embedding`` is "grid", None or a ``GridEmbeddingND`` /
+    ``GridEmbedding2D`` instance, as in the JAX module. ``device`` defaults to ``"cuda"`` and raises when there is no card
     unless ``device="cpu"`` is passed. Weights are drawn on the CPU from
     ``generator`` (torch's default generator when None), then moved.
     """
@@ -42,7 +47,7 @@ class FNO(nn.Module):
         n_layers: int = 4,
         lifting_channel_ratio: float = 2,
         projection_channel_ratio: float = 2,
-        positional_embedding: Optional[str] = "grid",
+        positional_embedding="grid",
         non_linearity: Callable = gelu,
         norm: Optional[str] = None,
         norm_groups: int = 1,
@@ -96,32 +101,44 @@ class FNO(nn.Module):
                     f"scan_layers=True does not support: {', '.join(bad)}; "
                     "use the unrolled FNOBlocks path"
                 )
-        if complex_data:
-            raise not_ported("FNO complex_data=True", "the other families")
-        if domain_padding is not None and domain_padding != 0:
-            raise not_ported("FNO domain_padding", "the other families")
         n_modes = tuple(int(m) for m in n_modes)
         self.n_layers = n_layers
         self.scan_layers = scan_layers
         self.remat = remat
-        if positional_embedding == "grid":
+        pe = positional_embedding
+        if isinstance(pe, str) and pe == "grid":
             self.embedding = GridEmbeddingND(in_channels, dim=len(n_modes))
-        elif positional_embedding is None:
+        elif isinstance(pe, GridEmbeddingND):
+            if isinstance(pe, GridEmbedding2D) and len(n_modes) != 2:
+                raise ValueError(f"expected {len(n_modes)}-d positional embedding, got 2-d")
+            self.embedding = pe
+        elif pe is None:
             self.embedding = None
         else:
-            raise not_ported(
-                f"FNO positional_embedding={positional_embedding!r}", "the other families"
+            raise ValueError(
+                f"positional_embedding must be 'grid', an embedding, or None; got {pe!r}"
             )
+        self.domain_padding = None
+        dp = domain_padding
+        if dp is not None and (sum(dp) > 0 if isinstance(dp, (list, tuple)) else float(dp) > 0):
+            self.domain_padding = DomainPadding(
+                list(dp) if isinstance(dp, (list, tuple)) else dp,
+                resolution_scaling_factor=resolution_scaling_factor)
         lifting_in = in_channels + (len(n_modes) if self.embedding is not None else 0)
-        self.lifting = ChannelMLP(
-            lifting_in,
-            out_channels=hidden_channels,
-            hidden_channels=int(lifting_channel_ratio * hidden_channels),
-            n_layers=2,
-            non_linearity=non_linearity,
-            device=device,
-            generator=generator,
-        )
+
+        def lifting():
+            return ChannelMLP(lifting_in, out_channels=hidden_channels,
+                              hidden_channels=int(lifting_channel_ratio * hidden_channels),
+                              n_layers=2, non_linearity=non_linearity, device=device,
+                              generator=generator)
+
+        def projection():
+            return ChannelMLP(hidden_channels, out_channels=out_channels,
+                              hidden_channels=int(projection_channel_ratio * hidden_channels),
+                              n_layers=2, non_linearity=non_linearity, device=device,
+                              generator=generator)
+
+        self.lifting = ComplexValued(lifting) if complex_data else lifting()
         if scan_layers:
             # the JAX _ScanLayer builds its layers with these fields alone
             self.fno_blocks = ScanFNOBlocks(
@@ -172,35 +189,39 @@ class FNO(nn.Module):
                 device=device,
                 generator=generator,
             )
-        self.projection = ChannelMLP(
-            hidden_channels,
-            out_channels=out_channels,
-            hidden_channels=int(projection_channel_ratio * hidden_channels),
-            n_layers=2,
-            non_linearity=non_linearity,
-            device=device,
-            generator=generator,
-        )
+        self.projection = ComplexValued(projection) if complex_data else projection()
 
-    def forward(self, x: torch.Tensor, output_shape=None, n_modes=None) -> torch.Tensor:
-        """``output_shape`` and ``n_modes`` (the JAX per-call overrides) must be None."""
-        if output_shape is not None or n_modes is not None:
-            if self.scan_layers:
-                raise ValueError("scan_layers=True does not support per-call output_shape "
-                                 "or n_modes overrides")
-            raise not_ported("FNO per-call output_shape/n_modes", "the other families")
+    def forward(self, x: torch.Tensor, output_shape=None, n_modes=None,
+                ada_in_embedding: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``output_shape``: None, a tuple (the last layer's output size) or a
+        list of per-layer sizes; ``n_modes``: a per-call mode count;
+        ``ada_in_embedding``: the AdaIN norms' conditioning."""
+        if output_shape is None:
+            output_shapes = [None] * self.n_layers
+        elif isinstance(output_shape, tuple):
+            output_shapes = [None] * (self.n_layers - 1) + [output_shape]
+        else:
+            output_shapes = list(output_shape)
         if self.embedding is not None:
             x = self.embedding(x)
         x = self.lifting(x)
+        if self.domain_padding is not None:
+            x = self.domain_padding.pad(x)
         if self.scan_layers:
+            if any(o is not None for o in output_shapes) or n_modes is not None:
+                raise ValueError("scan_layers=True does not support per-call output_shape "
+                                 "or n_modes overrides")
             x = self.fno_blocks(x)
         elif self.remat:
             params = dict(self.fno_blocks.named_parameters())
             for i in range(self.n_layers):
-                x = run_layer(self.fno_blocks, params, x, (i,), remat=True)
+                x = run_layer(self.fno_blocks, params, x,
+                              (i, output_shapes[i], ada_in_embedding, n_modes), remat=True)
         else:
             for i in range(self.n_layers):
-                x = self.fno_blocks(x, i)
+                x = self.fno_blocks(x, i, output_shapes[i], ada_in_embedding, n_modes)
+        if self.domain_padding is not None:
+            x = self.domain_padding.unpad(x)
         return self.projection(x)
 
 

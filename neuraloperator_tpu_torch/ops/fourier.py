@@ -1,11 +1,17 @@
-"""Fourier-domain mode truncation as truncated DFT matmuls.
+"""Fourier-domain mode truncation (port of ``neuraloperator_tpu/ops/fourier.py``).
 
-Port of ``neuraloperator_tpu/ops/fourier.py`` (the truncated-DFT path).
-Only ``kept << n`` frequencies survive a spectral convolution, so each
-axis transform is one ``(kept x n)`` DFT matmul and each inverse one
-``(n_out x kept)`` matmul whose structure enforces the DC/Nyquist
-Hermitian constraint. These are plain large matmuls, left to
-``torch.matmul`` as the JAX package left them to XLA.
+Two realizations of one semantics, as in the JAX package:
+
+1. **Truncated DFT matmuls.** Only ``kept << n`` frequencies survive a
+   spectral convolution, so each axis transform is one ``(kept x n)`` DFT
+   matmul and each inverse one ``(n_out x kept)`` matmul whose structure
+   enforces the DC/Nyquist Hermitian constraint. These are plain large
+   matmuls, left to ``torch.matmul`` as the JAX package left them to XLA.
+2. **FFTs and corner slices** (complex data, and a last axis over 512
+   points): the centered block of a shifted spectrum is two corner slices
+   of the unshifted one, gathered and scattered by
+   :func:`gather_center_modes` / :func:`scatter_center_modes` around
+   ``torch.fft`` transforms (cuFFT on the card).
 
 Operands are float32 or bfloat16, as in the JAX helpers: float32 products
 are f32-accurate (the JAX ``Precision.HIGH``); bfloat16 operands meet the
@@ -228,6 +234,63 @@ def rdft_scatter_last(cr, ci, n_out: int, norm: str) -> torch.Tensor:
                 widen=cr.dtype != torch.float32)
     return (_DftMatmul.apply(cr.float(), a[0].T, False)
             + _DftMatmul.apply(ci.float(), a[1].T, False))
+
+
+def gather_center_modes(x: torch.Tensor, kept_modes: Sequence[int],
+                        axes: Sequence[int]) -> torch.Tensor:
+    """The centered-mode block of an *unshifted* spectrum.
+
+    ``fftshift(x, axes)[..., center-neg:center+pos, ...]`` per axis without
+    the roll: along each axis frequencies ``-neg..-1, 0..pos-1``, the order
+    the weights index.
+    """
+    for kept, ax in zip(kept_modes, axes):
+        size = x.shape[ax]
+        neg, pos = kept_mode_counts(kept, size)
+        if neg == 0 and pos >= size:
+            continue
+        parts = [x.narrow(ax, size - neg, neg)] if neg else []
+        parts.append(x.narrow(ax, 0, pos))
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=ax)
+    return x
+
+
+def scatter_center_modes(block: torch.Tensor, out_sizes: Sequence[int],
+                         axes: Sequence[int]) -> torch.Tensor:
+    """Embed a centered-mode block into a zero spectrum (unshifted order).
+
+    The inverse of :func:`gather_center_modes`: along each axis
+    ``cat(block[neg:], zeros(size - kept), block[:neg])``.
+    """
+    x = block
+    for size, ax in zip(out_sizes, axes):
+        kept = x.shape[ax]
+        neg = kept // 2
+        if kept > size:
+            raise ValueError(
+                f"block has {kept} modes along axis {ax} but target size is {size}"
+            )
+        if neg == 0 and kept == size:
+            continue
+        zshape = list(x.shape)
+        zshape[ax] = size - kept
+        parts = [x.narrow(ax, neg, kept - neg)]
+        if size > kept:
+            parts.append(x.new_zeros(zshape))
+        if neg:
+            parts.append(x.narrow(ax, 0, neg))
+        x = torch.cat(parts, dim=ax)
+    return x
+
+
+def scatter_low_modes_last(block: torch.Tensor, size: int, axis: int = -1) -> torch.Tensor:
+    """Zero-pad the (rfft, unshifted) ``axis`` up to ``size`` low modes."""
+    kept = block.shape[axis]
+    if kept == size:
+        return block
+    axis = axis % block.ndim
+    pad = [0, 0] * (block.ndim - 1 - axis) + [0, size - kept]
+    return torch.nn.functional.pad(block, pad)
 
 
 def resolve_weight_slices(

@@ -84,6 +84,26 @@ def _output(model: torch.nn.Module, kwargs: dict, mixed_precision: bool) -> torc
     return model(**kwargs).float()
 
 
+def refuse_batch_stats(model: torch.nn.Module) -> None:
+    """Raise for a model that keeps BatchNorm running statistics.
+
+    The JAX Trainer applies its model to ``{"params": ...}`` alone and never
+    marks ``batch_stats`` mutable, so flax raises ``ScopeCollectionNotFound``
+    at a ``norm="batch_norm"`` FNO's first train or eval step; the port's
+    Trainer refuses such a model in the same places.
+    """
+    from ..layers.normalization_layers import BatchNorm
+
+    names = [name for name, m in model.named_modules() if isinstance(m, BatchNorm)]
+    if names:
+        raise ValueError(
+            f"the model keeps BatchNorm running statistics ({names[0]}, ...: flax's "
+            "'batch_stats' collection), which the Trainer does not carry: the JAX Trainer "
+            "applies the model to its parameters alone, where flax raises "
+            "ScopeCollectionNotFound"
+        )
+
+
 # the seed of stochastic rounding's noise (the JAX Trainer's base key)
 SR_SEED = 0x5757
 
@@ -358,6 +378,7 @@ class Trainer:
                 "optimizer must be what training.adamw or build_optimizer returns, "
                 f"got {type(optimizer).__name__}"
             )
+        refuse_batch_stats(self.model)
         if training_loss is None:
             training_loss = LpLoss(d=2)
         if eval_losses is None:
@@ -551,6 +572,7 @@ class Trainer:
         """
         if mode not in ("single_step", "autoregression"):
             raise ValueError(f"unknown eval mode {mode!r}")
+        refuse_batch_stats(self.model)
         dp = self.data_processor
         totals: Dict[str, torch.Tensor] = {}  # float64, as loss_sum in train
         n_samples = 0

@@ -1,9 +1,12 @@
-"""Small shared utilities (port of ``count_model_params`` of
-``neuraloperator_tpu/utils.py``)."""
+"""Small shared utilities (port of ``count_model_params`` and
+``validate_scaling_factor`` of ``neuraloperator_tpu/utils.py``)."""
 
 import math
+from typing import List, Optional, Union
 
 import torch
+
+Number = Union[int, float]
 
 
 def count_model_params(model: torch.nn.Module) -> int:
@@ -15,4 +18,34 @@ def count_model_params(model: torch.nn.Module) -> int:
     )
 
 
-__all__ = ["count_model_params"]
+def validate_scaling_factor(
+    scaling_factor: Union[None, Number, List[Number], List[List[Number]]],
+    n_dim: int,
+    n_layers: Optional[int] = None,
+) -> Union[None, List[float], List[List[float]]]:
+    """Normalize a resolution scaling factor: a scalar is broadcast over dims
+    (and layers); per-layer lists are checked for shape; anything else is
+    None, as in the JAX package."""
+    if scaling_factor is None:
+        return None
+    if isinstance(scaling_factor, (float, int)):
+        if n_layers is None:
+            return [float(scaling_factor)] * n_dim
+        return [[float(scaling_factor)] * n_dim] * n_layers
+    if isinstance(scaling_factor, (list, tuple)) and len(scaling_factor) > 0:
+        if all(isinstance(s, (float, int)) for s in scaling_factor):
+            if n_layers is None and len(scaling_factor) == n_dim:
+                return [float(s) for s in scaling_factor]
+            if n_layers is not None and len(scaling_factor) == n_layers:
+                return [[float(s)] * n_dim for s in scaling_factor]
+        if all(
+            isinstance(s, (list, tuple))
+            and len(s) == n_dim
+            and all(isinstance(v, (float, int)) for v in s)
+            for s in scaling_factor
+        ):
+            return [[float(v) for v in s] for s in scaling_factor]
+    return None
+
+
+__all__ = ["count_model_params", "validate_scaling_factor"]

@@ -73,6 +73,12 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/scripts/_checkpoint_cli.py",
         "neuraloperator_tpu_torch/layers/scan_fno_block.py",
         "neuraloperator_tpu_torch/layers/channel_mlp.py",
+        "neuraloperator_tpu_torch/layers/resample.py",
+        "neuraloperator_tpu_torch/layers/complex.py",
+        "neuraloperator_tpu_torch/layers/normalization_layers.py",
+        "neuraloperator_tpu_torch/layers/padding.py",
+        "neuraloperator_tpu_torch/data/datasets/darcy.py",
+        "neuraloperator_tpu_torch/scripts/train_darcy.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -152,6 +158,7 @@ def _new_entry_points():
         eval_ns_superres,
         generate_ns_data,
         serve_model,
+        train_darcy,
         train_navier_stokes,
     )
     from neuraloperator_tpu_torch.training import load_training_state
@@ -173,6 +180,7 @@ def _new_entry_points():
         "train_navier_stokes.main": lambda: train_navier_stokes.main(["--opt.n_epochs", "1"]),
         "eval_ns_superres.main": lambda: eval_ns_superres.main(["--save_dir", str(flagship)]),
         "eval_ns_rollout.main": lambda: eval_ns_rollout.main(["--save_dir", str(flagship)]),
+        "train_darcy.main": lambda: train_darcy.main(["--opt.n_epochs", "1"]),
     }
 
 
@@ -181,7 +189,8 @@ def _new_entry_points():
                                   "evaluate", "eval_ns_checkpoint.main", "serve_model.main",
                                   "solve_navier_stokes_2d", "load_navier_stokes_pt",
                                   "generate_ns_data.main", "train_navier_stokes.main",
-                                  "eval_ns_superres.main", "eval_ns_rollout.main"])
+                                  "eval_ns_superres.main", "eval_ns_rollout.main",
+                                  "train_darcy.main"])
 def test_checkpoint_solver_and_eval_entry_points_refuse_the_cpu_fallback(no_card, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _new_entry_points()[name]()

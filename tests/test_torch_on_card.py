@@ -702,3 +702,77 @@ def test_reconstructed_tfno_launches_k1_to_k3_and_matches_the_factorized_one(car
     assert float((outs[1] - outs[0]).norm() / outs[0].norm()) <= 1e-5
     for name, g in grads[0].items():
         assert float((grads[1][name] - g).norm() / g.norm()) <= 1e-4, name
+
+
+# the FNO family's layer options at a small width: the model's kwargs and
+# its input's spatial shape (the last a 600-point axis: the rFFT/irFFT path)
+CARD_OPTIONS = {
+    "domain_padding": ({"domain_padding": 0.25}, (16, 16)),
+    "complex_data": ({"complex_data": True}, (16, 16)),
+    "scaling_per_layer": ({"resolution_scaling_factor": [2, 0.5]}, (16, 16)),
+    "norms_preactivation_stabilizer": ({"norm": "group_norm", "norm_groups": 2,
+                                        "preactivation": True, "stabilizer": "tanh"}, (16, 16)),
+    "conv_bias_kernel": ({"conv_bias_kernel": 3, "norm": "instance_norm"}, (16, 16)),
+    "fft_path": ({}, (8, 600)),
+}
+
+
+@pytest.mark.parametrize("option", sorted(CARD_OPTIONS))
+def test_layer_options_on_the_card_match_the_cpu(card, option):
+    """Each option's forward and gradients on the card against the CPU
+    (1e-5 and 1e-4 relative l2; a gradient per leaf against the larger of
+    its norm and 1% of the whole gradient's, as biases before a norm sum to
+    rounding noise), with K1 once per layer and forward and K2/K3 once per
+    layer and backward: the complex and FFT branches reach the kernels."""
+    from neuraloperator_tpu_torch.models import FNO
+
+    kwargs, res = CARD_OPTIONS[option]
+    common = dict(n_modes=(8, 8), in_channels=1, out_channels=1, hidden_channels=8,
+                  n_layers=2, **kwargs)
+    model = FNO(**common, device="cuda", generator=torch.Generator().manual_seed(0))
+    cpu_model = FNO(**common, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 1, *res, generator=gen)
+    if kwargs.get("complex_data"):
+        x = torch.complex(x, torch.randn(2, 1, *res, generator=gen))
+    outs, grads, launches = [], [], []
+    for m, device in ((model, "cuda"), (cpu_model, "cpu")):
+        before = tsc.launch_counts()
+        out = m(x.to(device))
+        loss = (torch.view_as_real(out) if out.is_complex() else out).sub(1.0).square().mean()
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        after = tsc.launch_counts()
+        launches.append({k: after[k] - before[k] for k in after})
+        outs.append(out.detach().cpu().to(torch.complex128))
+        grads.append({n: p.grad.detach().cpu().double() for n, p in m.named_parameters()})
+    assert launches[0] == {"mode_contraction": 2, "mode_contraction_dx": 2,
+                           "mode_contraction_dw": 2}
+    assert float((outs[0] - outs[1]).norm() / outs[1].norm()) <= 1e-5
+    total = sum(float(g.square().sum()) for g in grads[1].values()) ** 0.5
+    for name, ref in grads[1].items():
+        scale = max(float(ref.norm()), 1e-2 * total)
+        assert float((grads[0][name] - ref).norm()) / scale <= 1e-4, name
+
+
+def test_darcy_entry_point_on_the_card(card, tmp_path, monkeypatch):
+    """``train_darcy`` on the card, 1 epoch at a small size on generated
+    files: finite metrics, and K1 per layer and forward (steps and
+    evaluation batches), K2 and K3 per layer and step."""
+    from neuraloperator_tpu_torch.data.datasets import darcy
+    from neuraloperator_tpu_torch.scripts import train_darcy
+
+    monkeypatch.setattr(darcy, "DATA_ROOT", tmp_path)
+    before = tsc.launch_counts()
+    metrics = train_darcy.main(["--data.n_train", "16", "--data.n_tests", "[8,8]",
+                                "--data.test_batch_sizes", "[4,4]", "--opt.n_epochs", "1",
+                                "--verbose", "false"])
+    torch.cuda.synchronize()
+    after = tsc.launch_counts()
+    assert all(np.isfinite(v) for v in metrics.values())
+    steps, evals = 16 // 8, 2 + 2
+    assert {k: after[k] - before[k] for k in after} == {
+        "mode_contraction": 4 * (steps + evals), "mode_contraction_dx": 4 * steps,
+        "mode_contraction_dw": 4 * steps}

@@ -252,8 +252,11 @@ def test_scan_refuses_per_call_overrides():
     for kwargs in ({"output_shape": (8, 8)}, {"n_modes": (2, 2)}):
         with pytest.raises(ValueError, match="per-call output_shape or n_modes"):
             model(x, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FNO((4, 4), 1, 1, 4, device="cpu")(x, output_shape=(8, 8))
+    # the unrolled model takes them (tests/test_torch_layer_options.py holds
+    # them to JAX)
+    unrolled = FNO((4, 4), 1, 1, 4, device="cpu")
+    assert unrolled(x, output_shape=(12, 12)).shape == (1, 1, 12, 12)
+    assert unrolled(x, n_modes=(2, 2)).shape == (1, 1, 8, 8)
 
 
 def _scanned_states(steps=2):
