@@ -12,7 +12,9 @@ Phases, each printed with its elapsed seconds as it goes:
 3. kernels: runs each kernel (K1 forward contraction, K2 its input
    gradient, K3 its weight gradient) against its plain PyTorch version at
    the flagship shapes (K1 at batches 1, 8 and 16, K2 and K3 at 8, each in
-   f32 and bf16; and at the Darcy recipe's, phase 15), and times the kernel, the plain version and one library
+   f32 and bf16; at the Darcy recipe's, phase 15; at UNO's widest layer,
+   phase 17; and K2/K3 at UQNO's batch, phase 18), and times the kernel,
+   the plain version and one library
    call on the device (``_timing.device_ms``: the launches queued behind a
    device-side wait, so the CUDA events do not time the host's enqueue
    rate) beside the kernel's bound and the host's time per call, through
@@ -172,13 +174,39 @@ Phases, each printed with its elapsed seconds as it goes:
    ``output_shape`` (16² in, 32² out); then the published weights forward on
    a 128 x 1024 input (the rFFT/irFFT path), card against CPU, K1 once per
    layer, the transforms in the profile;
-17. prints one ``{"kernels": [...]}`` line, then, as the last line,
+17. families: UNO, LocalNO and CODANO at their recorded widths
+   (``scripts/train_family_quality.py``'s configurations: 407,521,
+   703,465 and 219,721 parameters) through the port's
+   ``scripts.train_family_quality`` entry point on the Darcy recipe's files
+   (1000 training pairs at 16², tests of 100 at 16² and 50 at 32², made on
+   the host by ``load_darcy_flow_small`` into a temporary directory), cut to
+   2 epochs each: finite losses, the training loss falling, each
+   evaluation within twice the JAX script's own figure for the same cut on
+   the same files, the parameter counts; K1 once per spectral layer and
+   forward (steps and evaluation batches) and K2/K3 once per spectral
+   layer and step for UNO and LocalNO, none for CODANO (its Tucker einsum
+   chain); the loop step's ms, a profile of 10 loop steps (the device's
+   idle share), the peak memory, and one step of batch 2 card against CPU
+   from the same weights. The kernels phase also checks and times K1 at
+   batches 8 and 16 and K2/K3 at 8 at UNO's widest layer (64 -> 32
+   channels over 8 x 5 modes);
+18. uqno: the port's ``scripts.train_uqno_darcy`` at its defaults, whole
+   (the solution FNO 30 epochs through the ``Trainer``, the residual FNO
+   30 epochs of its autograd loop, 1000 pairs at 16² split 600 / 250 /
+   150, 100 test pairs) on the same files: the calibration indices equal
+   to ``get_coeff_quantile_idx``'s on the host, the pointwise and
+   function-level coverage held to the JAX script's CPU figures on the same
+   files less a slack, the UQNO's solution getting no gradient, and K1-K3
+   counted against the script's batches. The kernels phase also checks and
+   times K2/K3 at the Darcy shapes at UQNO's batch of 16;
+19. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
 line. It imports nothing of JAX.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -450,6 +478,42 @@ OPTION_CASES = {
 # whose last axis is over 512 points (rFFT in, irFFT out), card against CPU
 # within the serve phase's bound
 FFT_SHAPE = (1, 1, 128, 1024)
+# the families phase: scripts/train_family_quality.py's recorded
+# configurations on the Darcy recipe's files, FAMILY_EPOCHS epochs each at
+# batch 8 (125 steps an epoch) with evaluations after each (7 + 4 batches of
+# 16), the spectral layers that reach K1-K3 (CODANO's are Tucker, contracted
+# by einsums), and the parameter counts of BASELINE.md:722-726
+FAMILIES = ("uno", "local_no", "codano")
+FAMILY_EPOCHS = 2
+FAMILY_SPECTRAL_LAYERS = {"uno": 5, "local_no": 4, "codano": 0}
+FAMILY_PARAMS = {"uno": 407_521, "local_no": 703_465, "codano": 219_721}
+# Each evaluation after the cut within twice the JAX package's own figure for
+# the same cut on the same files: its scripts/train_family_quality.py on the
+# CPU, 2 epochs on the seed-0 files (1000 + 100 + 100 pairs, which the port's
+# generator writes to the bit), from its Trainer's PRNGKey(0) init. The port
+# starts from its own seeded init; an untrained model reads about 1 in l2.
+FAMILY_JAX = {
+    "uno": {"16_l2": 0.16476, "16_h1": 0.18748, "32_l2": 0.16457, "32_h1": 0.40262},
+    "local_no": {"16_l2": 0.08838, "16_h1": 0.11771, "32_l2": 0.15020, "32_h1": 0.50366},
+    "codano": {"16_l2": 0.46022, "16_h1": 0.94717, "32_l2": 0.49635, "32_h1": 0.98262},
+}
+FAMILY_BOUNDS = {fam: {k: 2 * v for k, v in figures.items()}
+                 for fam, figures in FAMILY_JAX.items()}
+FAMILY_PROFILE_STEPS = 10
+# UNO's widest spectral layer (block 3: 32 + 32 channels in, 32 out, 8 x 5 modes)
+UNO_CHANNELS, UNO_MODES = (64, 32), 8 * 5
+# the uqno phase: scripts/train_uqno_darcy.py at its defaults on the same
+# files. The JAX script on the CPU on these files, from its PRNGKey(0) and
+# (1) inits, printed pointwise coverage 0.997 and function coverage 1.000
+# (domain_idx 5, function_idx 4, scale 3.9976, mean band 0.00109). The
+# port's run, from its own seeded inits, must cover as well less a slack of
+# 0.05: a band trained from another init covers otherwise (the README's
+# runs read function coverage 0.970-1.000), and the slack keeps each floor
+# at or above what the calibration promises (0.9 of the points, 0.95 of
+# the functions)
+UQNO_BATCH = 16
+UQNO_JAX = {"pointwise": 0.997, "function": 1.000}
+UQNO_SLACK = {"pointwise": 0.05, "function": 0.05}
 
 # the profile tables' kinds of kernel, by words in a kernel's name (first match)
 KERNEL_KINDS = (("K1-K3", ("channel_contraction", "weight_grad")),
@@ -1786,7 +1850,6 @@ def option_run(name: str, flags: list, mixed_final: dict) -> dict:
     """One option of the options phase: a graphed epoch warm-started from the
     published weights, its checks, then one more epoch resumed from its files."""
     import ast
-    import contextlib
 
     from neuraloperator_tpu_torch.serialization import read_msgpack
     from neuraloperator_tpu_torch.training.training_state import read_manifest
@@ -2772,7 +2835,6 @@ def darcy_model(device: str, **kwargs):
 
 def darcy() -> dict:
     """(15) the Darcy recipe through the port's scripts.train_darcy on the card."""
-    import contextlib
     import re
 
     from neuraloperator_tpu_torch.config import DarcyConfig
@@ -2998,13 +3060,219 @@ def layer_options() -> dict:
     cases["ada_in"] = option_against_cpu("ada_in", {"norm": "ada_in", "ada_in_features": 8},
                                          {}, blocks=True)
     fft = fft_path_at_flagship_width()
-    runs = [*cases.values(), fft]
-    by_dtype = {name: {"float32": sum(r["launches_by_dtype"][name]["float32"] for r in runs),
-                       "bfloat16": sum(r["launches_by_dtype"][name]["bfloat16"] for r in runs)}
-                for name in kernel_specs()}
+    launches, by_dtype = sum_launches([*cases.values(), fft])
     only_dtype(by_dtype, "float32")
-    return {"launches": {name: sum(c.values()) for name, c in by_dtype.items()},
-            "launches_by_dtype": by_dtype, "cases": cases, "fft_path": fft}
+    return {"launches": launches, "launches_by_dtype": by_dtype, "cases": cases,
+            "fft_path": fft}
+
+
+@contextlib.contextmanager
+def darcy_files():
+    """The Darcy recipe's files, made on the host by the port's
+    ``load_darcy_flow_small`` into a temporary ``DATA_ROOT`` (1000 training
+    pairs at 16², 100 test pairs at 16² and 32²); yields the seconds it took."""
+    from neuraloperator_tpu_torch.data.datasets import darcy as tdarcy
+
+    data_dir = Path(tempfile.mkdtemp(prefix="darcy-files-"))
+    default_root, tdarcy.DATA_ROOT = tdarcy.DATA_ROOT, data_dir
+    try:
+        t0 = time.perf_counter()
+        tdarcy.load_darcy_flow_small(n_train=1000, n_tests=[100, 50], batch_size=8,
+                                     test_batch_sizes=[16, 16], test_resolutions=[16, 32])
+        gen_s = time.perf_counter() - t0
+        log(f"darcy files: generated on the host in {gen_s:.1f} s into {data_dir.name}")
+        yield gen_s
+    finally:
+        tdarcy.DATA_ROOT = default_root
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def family_run(family: str) -> dict:
+    """One family through ``scripts.train_family_quality`` on the card."""
+    import re
+
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
+    from neuraloperator_tpu_torch.data.datasets import darcy as tdarcy
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.scripts import train_family_quality as tfq
+    from neuraloperator_tpu_torch.training import Trainer, adamw
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    record: list = []
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        metrics = run_recipe_entry_point(["--family", family, "--n_epochs", str(FAMILY_EPOCHS)],
+                                         record, script=tfq)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    only_dtype(by_dtype, "float32")
+    trainer = record[-1][0]
+    model, processor = trainer.model, trainer.data_processor
+    line = json.loads([ln for ln in tee.text().splitlines() if ln.startswith("{")][-1])
+    train_errs = [float(v) for v in re.findall(r"train=([0-9.eE+-]+)", tee.text())]
+    log(f"families: {family}: {FAMILY_EPOCHS} epochs in {train_s:.1f} s; train losses "
+        f"{train_errs}; final {metrics}; {line['n_params']} parameters; launches {launches}; "
+        f"peak {peak_mib:.0f} MiB")
+    if line["n_params"] != FAMILY_PARAMS[family]:
+        raise AssertionError(f"families: {family} has {line['n_params']} parameters, "
+                             f"expected {FAMILY_PARAMS[family]}")
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad or len(train_errs) != FAMILY_EPOCHS or not all(map(math.isfinite, train_errs)):
+        raise AssertionError(f"families: {family}: non-finite metrics {bad} or train losses "
+                             f"{train_errs}")
+    if not train_errs[-1] < train_errs[0]:
+        raise AssertionError(f"families: {family}: the training loss did not fall: {train_errs}")
+    misses = {k: (metrics[k], b) for k, b in FAMILY_BOUNDS[family].items()
+              if not metrics[k] <= b}
+    if misses:
+        raise AssertionError(f"families: {family}: evaluations above their bounds {misses}")
+    # the script's loader: 125 steps of 8 an epoch; each epoch evaluated on
+    # 100 + 50 test pairs in batches of 16
+    steps, evals = 1000 // 8, math.ceil(100 / 16) + math.ceil(50 / 16)
+    layers = FAMILY_SPECTRAL_LAYERS[family]
+    expected = {"mode_contraction": layers * FAMILY_EPOCHS * (steps + evals),
+                "mode_contraction_dx": layers * FAMILY_EPOCHS * steps,
+                "mode_contraction_dw": layers * FAMILY_EPOCHS * steps}
+    if launches != expected or len(record) != FAMILY_EPOCHS:
+        raise AssertionError(f"families: {family}: launched {launches} over {len(record)} "
+                             f"evaluations, expected {expected}")
+    # the last epoch's loop steps, ended by the float() of the summed loss
+    step_ms = 1e3 * metrics["epoch_time"] / steps
+    train_loader, _, _ = tdarcy.load_darcy_flow_small(
+        n_train=1000, n_tests=[100, 50], batch_size=8, test_batch_sizes=[16, 16],
+        test_resolutions=[16, 32], encode_input=family == "codano")
+    arrays = train_loader.dataset.arrays
+    n_prof = FAMILY_PROFILE_STEPS * 8
+    loader = DataLoader(TensorDataset(arrays["x"][:n_prof], arrays["y"][:n_prof]), 8)
+    lr = 1e-3 if family == "codano" else 3e-3
+
+    def loop_steps():
+        t = Trainer(model=model, n_epochs=1, data_processor=processor, device="cuda")
+        t.train(loader, {}, adamw(lr, weight_decay=1e-4), training_loss=H1Loss(d=2))
+
+    # warm from the run: the same steps' shapes, plans and caches
+    profile = profile_window(f"{FAMILY_PROFILE_STEPS} {family} loop steps of batch 8",
+                             loop_steps)
+
+    # one step of batch 2, card against CPU from the same weights
+    cpu_model = tfq.build_model(family, 16, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x2, y2 = arrays["x"][:2], arrays["y"][:2]
+    loss_gpu, grads_gpu = one_step(model, processor, x2, y2, "cuda")
+    loss_cpu, grads_cpu = one_step(cpu_model, processor, x2, y2, "cpu")
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err = grad_errors(grads_gpu, grads_cpu)
+    worst = max(grad_err, key=grad_err.get)
+    log(f"families: {family}: {step_ms:.3f} ms per loop step of batch 8 (last epoch); one "
+        f"step of batch 2, card vs CPU: loss rel {loss_err:.2e} (tol {STEP_LOSS_TOL:.0e}), "
+        f"gradients max {grad_err[worst]:.2e} ({worst}, tol {STEP_GRAD_TOL:.0e})")
+    if not loss_err <= STEP_LOSS_TOL or not grad_err[worst] <= STEP_GRAD_TOL:
+        raise AssertionError(f"families: {family}: card and CPU steps differ: loss {loss_err}, "
+                             f"gradients {grad_err}")
+    return {"launches": launches, "launches_by_dtype": by_dtype, "metrics": metrics,
+            "train_errs": train_errs, "n_params": line["n_params"], "train_s": train_s,
+            "step_ms": step_ms, "peak_mib": peak_mib, "profile": profile,
+            "step_loss_rel_err": loss_err, "step_grad_rel_l2_max": grad_err[worst]}
+
+
+def sum_launches(runs) -> tuple:
+    """The launch counts of several runs, summed, and by dtype."""
+    runs = list(runs)
+    by_dtype = {name: {dt: sum(r["launches_by_dtype"][name][dt] for r in runs)
+                       for dt in ("float32", "bfloat16")} for name in kernel_specs()}
+    return {name: sum(c.values()) for name, c in by_dtype.items()}, by_dtype
+
+
+def families() -> dict:
+    """(17) UNO, LocalNO and CODANO through the port's train_family_quality on the card."""
+    runs = {family: family_run(family) for family in FAMILIES}
+    launches, by_dtype = sum_launches(runs.values())
+    return {"launches": launches, "launches_by_dtype": by_dtype, "runs": runs}
+
+
+def uqno() -> dict:
+    """(18) the port's train_uqno_darcy at its defaults on the card."""
+    import re
+
+    from neuraloperator_tpu_torch.losses import PointwiseQuantileLoss
+    from neuraloperator_tpu_torch.scripts import train_uqno_darcy as tuq
+
+    cfg = tuq.UQNOConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        result = tuq.main([])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    only_dtype(by_dtype, "float32")
+    base_losses = [float(v) for v in re.findall(r"train=([0-9.eE+-]+)", tee.text())]
+    log(f"uqno: {run_s:.1f} s; base losses {base_losses[0]:.4f} -> {base_losses[-1]:.4f}; "
+        f"residual quantile losses {result['residual_losses'][0]:.5f} -> "
+        f"{result['residual_losses'][-1]:.5f}; calibration domain_idx {result['domain_idx']} "
+        f"function_idx {result['function_idx']} scale {result['scale']:.6f}; coverage "
+        f"pointwise {result['pointwise']:.6f} function {result['function']:.4f}, mean band "
+        f"{result['band_width']:.6f}; launches {launches}; peak {peak_mib:.0f} MiB")
+    # the base's Trainer prints its loss at each evaluation: epochs 0, 10, 20 and the last
+    n_evals = len({e for e in range(cfg.base_epochs) if e % 10 == 0 or e == cfg.base_epochs - 1})
+    losses = base_losses + result["residual_losses"]
+    if len(base_losses) != n_evals or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"uqno: non-finite or missing losses {losses}")
+    if not (base_losses[-1] < base_losses[0]
+            and result["residual_losses"][-1] < result["residual_losses"][0]):
+        raise AssertionError(f"uqno: a training loss did not fall: {losses}")
+    # the calibration indices, computed on the host from the split's sizes
+    host_idx = tuq.get_coeff_quantile_idx(cfg.alpha, cfg.delta, cfg.n_calib_residual, 16 * 16)
+    if (result["domain_idx"], result["function_idx"]) != host_idx:
+        raise AssertionError(f"uqno: calibration indices {result['domain_idx']}, "
+                             f"{result['function_idx']} against {host_idx} on the host")
+    low = {k: (result[k], UQNO_JAX[k] - UQNO_SLACK[k]) for k in UQNO_SLACK
+           if not result[k] >= UQNO_JAX[k] - UQNO_SLACK[k]}
+    if low:
+        raise AssertionError(f"uqno: coverage below the JAX run's less the slack: {low}")
+    # K1 per layer of each FNO forward, K2/K3 per layer of each step: the base
+    # through the Trainer (its steps and its evaluations), the base's predictions on the residual split, the
+    # residual's steps, and the UQNO's predictions (both FNOs) on the
+    # calibration and test splits
+    n_layers = 4
+
+    def batches(n):
+        return math.ceil(n / UQNO_BATCH)
+
+    base_steps = cfg.base_epochs * batches(cfg.n_train_solution)
+    res_steps = cfg.residual_epochs * batches(cfg.n_train_residual)
+    forwards = (base_steps + n_evals * batches(100) + batches(cfg.n_train_residual)
+                + res_steps + 2 * (batches(cfg.n_calib_residual) + batches(100)))
+    expected = {"mode_contraction": n_layers * forwards,
+                "mode_contraction_dx": n_layers * (base_steps + res_steps),
+                "mode_contraction_dw": n_layers * (base_steps + res_steps)}
+    if launches != expected:
+        raise AssertionError(f"uqno: launched {launches}, expected {expected}")
+    # the UQNO's solution gets no gradient: one quantile-loss step through it
+    model = result["uqno"].train()
+    model.zero_grad(set_to_none=True)  # the training steps' last gradients
+    x = torch.randn(2, 1, 16, 16, generator=torch.Generator().manual_seed(SEED + 30)).cuda()
+    solution, band = model(x)
+    PointwiseQuantileLoss(cfg.alpha)(band, solution).backward()
+    base_grads = [n for n, p in model.base_model.named_parameters() if p.grad is not None]
+    residual_grads = [p.grad for p in model.residual_model.parameters()]
+    if solution.requires_grad or base_grads or any(g is None for g in residual_grads):
+        raise AssertionError(f"uqno: the base got gradients ({base_grads}) or the residual "
+                             "missed some")
+    log(f"uqno: the solution is detached; the base has no gradient, the residual's "
+        f"{len(residual_grads)} leaves have theirs")
+    return {"launches": launches, "launches_by_dtype": by_dtype, "run_s": run_s,
+            "peak_mib": peak_mib, "base_losses": base_losses,
+            **{k: v for k, v in result.items() if k != "uqno"}}
 
 
 def kernel_line(variants, paths) -> list:
@@ -3074,6 +3342,21 @@ def main() -> None:
                                  ("mode_contraction", DARCY_EVAL_BATCH),
                                  ("mode_contraction_dx", TRAIN_BATCH),
                                  ("mode_contraction_dw", TRAIN_BATCH))]
+    # UNO's widest layer (64 -> 32 channels over 40 modes): K1 at the step's
+    # batch and the evaluation's, K2 and K3 at the step's; and K2/K3 at the
+    # Darcy shapes at UQNO's batch of 16
+    variants += [dict(name=name, recipe="uno",
+                      **check_kernel(name, b, torch.float32, channels=UNO_CHANNELS,
+                                     modes=UNO_MODES))
+                 for name, b in (("mode_contraction", TRAIN_BATCH),
+                                 ("mode_contraction", DARCY_EVAL_BATCH),
+                                 ("mode_contraction_dx", TRAIN_BATCH),
+                                 ("mode_contraction_dw", TRAIN_BATCH))]
+    variants += [dict(name=name, recipe="uqno",
+                      **check_kernel(name, UQNO_BATCH, torch.float32,
+                                     channels=(DARCY_CHANNELS, DARCY_CHANNELS),
+                                     modes=DARCY_MODES))
+                 for name in ("mode_contraction_dx", "mode_contraction_dw")]
     k3 = {v["dtype"]: v["ms"] for v in variants if v["name"] == "mode_contraction_dw"
           and v["batch"] == TRAIN_BATCH and v["shape"]["M"] == MODES}
     k1 = next(v["ms"] for v in variants if v["name"] == "mode_contraction"
@@ -3104,13 +3387,18 @@ def main() -> None:
     tfno_run = tfno(processor, recipe_run)
     darcy_run = darcy()
     layer_options_run = layer_options()
+    with darcy_files() as darcy_files_s:
+        families_run = families()
+        uqno_run = uqno()
+    families_run["generate_s"] = darcy_files_s
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
                                      "recipe": recipe_run, "mixed": mixed_run,
                                      "superres": superres_run, "rollout": rollout_run,
                                      "options": options_run, "quantize_export": quantize_run,
                                      "remat_scan": remat_scan_run, "tfno": tfno_run,
-                                     "darcy": darcy_run, "layer_options": layer_options_run})
+                                     "darcy": darcy_run, "layer_options": layer_options_run,
+                                     "families": families_run, "uqno": uqno_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
@@ -3143,7 +3431,11 @@ def main() -> None:
         f"loop step {darcy_run['step_ms']:.3f} ms, peak {darcy_run['peak_mib']:.0f} MiB; "
         f"layer options worst forward "
         f"{max(c['forward_rel_l2'] for c in layer_options_run['cases'].values()):.2e}, "
-        f"FFT path rel_l2 {layer_options_run['fft_path']['rel_l2']:.2e}")
+        f"FFT path rel_l2 {layer_options_run['fft_path']['rel_l2']:.2e}; families "
+        f"{ {f: r['metrics'] for f, r in families_run['runs'].items()} }, loop step ms "
+        f"{ {f: round(r['step_ms'], 3) for f, r in families_run['runs'].items()} }; uqno "
+        f"coverage {uqno_run['pointwise']:.4f} / {uqno_run['function']:.3f} in "
+        f"{uqno_run['run_s']:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -69,3 +69,13 @@ class DomainPadding:
         return x
 
     __call__ = pad
+
+
+def domain_padding_or_none(domain_padding, resolution_scaling_factor=1):
+    """A ``DomainPadding`` when any fraction of ``domain_padding`` (a number
+    or one per dim) is above 0, else None: how the models build theirs."""
+    dp = domain_padding
+    if dp is None or not (sum(dp) > 0 if isinstance(dp, (list, tuple)) else float(dp) > 0):
+        return None
+    return DomainPadding(list(dp) if isinstance(dp, (list, tuple)) else dp,
+                         resolution_scaling_factor=resolution_scaling_factor)

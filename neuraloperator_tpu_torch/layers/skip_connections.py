@@ -5,6 +5,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.convolution import conv_nd
 from . import _init
 
 
@@ -72,7 +73,7 @@ class LocalConvSkip(nn.Module):
     all, ``(k - 1) // 2`` before and the rest after, so an even kernel puts
     its extra pad after, as ``lax.conv_general_dilated`` does. The
     convolution is a cross-correlation in the promoted dtype of the input
-    and the kernel.
+    and the kernel, at ``training.setup``'s precision (``ops/convolution.py``).
     """
 
     def __init__(self, in_channels: int, out_channels: int, n_dim: int, kernel_size: int, *,
@@ -89,8 +90,7 @@ class LocalConvSkip(nn.Module):
         hi = self.kernel_size - 1 - lo
         dtype = torch.promote_types(x.dtype, self.kernel.dtype)
         x = nn.functional.pad(x.to(dtype), [lo, hi] * self.n_dim)
-        conv = (nn.functional.conv1d, nn.functional.conv2d, nn.functional.conv3d)[self.n_dim - 1]
-        return conv(x, self.kernel.to(dtype))
+        return conv_nd(x, self.kernel.to(dtype))
 
 
 def skip_connection(

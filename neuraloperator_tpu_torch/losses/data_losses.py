@@ -169,6 +169,31 @@ def _unported(name: str):
     return type(name, (), {"__init__": __init__, "__doc__": f"{name}: not ported yet."})
 
 
+class PointwiseQuantileLoss:
+    """Quantile (pinball) loss of a predicted band ``y_pred`` against the
+    point errors ``y``: the mean over each sample's points of
+    ``max(q (|y| - y_pred), (1 - q) (y_pred - |y|))``, q = 1 - alpha,
+    summed ("sum") or averaged ("mean") over the samples."""
+
+    def __init__(self, alpha: float, reduction="sum"):
+        if reduction not in ("sum", "mean"):
+            raise ValueError(f"reduction must be 'sum' or 'mean', got {reduction!r}")
+        self.alpha = alpha
+        self.reduction = reduction
+
+    @property
+    def name(self):
+        return "PointwiseQuantileLoss"
+
+    def __call__(self, y_pred, y, **kwargs):
+        quantile = 1.0 - self.alpha
+        yscale = torch.abs(y)
+        ptwise = torch.maximum(quantile * (yscale - y_pred), (1 - quantile) * (y_pred - yscale))
+        per_sample = torch.mean(ptwise.reshape(ptwise.shape[0], -1), dim=-1, keepdim=True)
+        if self.reduction == "sum":
+            return torch.squeeze(torch.sum(per_sample))
+        return torch.squeeze(torch.mean(per_sample))
+
+
 HdivLoss = _unported("HdivLoss")
 MSELoss = _unported("MSELoss")
-PointwiseQuantileLoss = _unported("PointwiseQuantileLoss")

@@ -22,7 +22,7 @@ from ..layers.channel_mlp import ChannelMLP, gelu
 from ..layers.complex import ComplexValued
 from ..layers.embeddings import GridEmbedding2D, GridEmbeddingND
 from ..layers.fno_block import FNOBlocks
-from ..layers.padding import DomainPadding
+from ..layers.padding import domain_padding_or_none
 from ..layers.scan_fno_block import ScanFNOBlocks, run_layer
 from ..layers.spectral_convolution import SpectralConv
 from .base_model import register_model
@@ -118,12 +118,7 @@ class FNO(nn.Module):
             raise ValueError(
                 f"positional_embedding must be 'grid', an embedding, or None; got {pe!r}"
             )
-        self.domain_padding = None
-        dp = domain_padding
-        if dp is not None and (sum(dp) > 0 if isinstance(dp, (list, tuple)) else float(dp) > 0):
-            self.domain_padding = DomainPadding(
-                list(dp) if isinstance(dp, (list, tuple)) else dp,
-                resolution_scaling_factor=resolution_scaling_factor)
+        self.domain_padding = domain_padding_or_none(domain_padding, resolution_scaling_factor)
         lifting_in = in_channels + (len(n_modes) if self.embedding is not None else 0)
 
         def lifting():

@@ -9,7 +9,10 @@ The port's default stays ``"highest"`` (full f32), so every path keeps the
 numerics it was checked at. Either way the spectral layers' DFT matmuls run
 f32-accurate, as the JAX package asks for ``Precision.HIGH`` in them
 whatever the default: ``ops/fourier.py::dft_matmul_precision`` switches TF32
-off around each of them and restores the value set here.
+off around each of them and restores the value set here. The local
+convolutions (finite-difference, DISCO, the local skip) follow the matmul
+precision set here, cuDNN's TF32 off under "highest"
+(``ops/convolution.py``).
 """
 
 from typing import Optional

@@ -79,6 +79,17 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/layers/padding.py",
         "neuraloperator_tpu_torch/data/datasets/darcy.py",
         "neuraloperator_tpu_torch/scripts/train_darcy.py",
+        "neuraloperator_tpu_torch/ops/convolution.py",
+        "neuraloperator_tpu_torch/layers/differential_conv.py",
+        "neuraloperator_tpu_torch/layers/discrete_continuous_convolution.py",
+        "neuraloperator_tpu_torch/layers/local_no_block.py",
+        "neuraloperator_tpu_torch/layers/coda_layer.py",
+        "neuraloperator_tpu_torch/models/local_no.py",
+        "neuraloperator_tpu_torch/models/uno.py",
+        "neuraloperator_tpu_torch/models/codano.py",
+        "neuraloperator_tpu_torch/models/uqno.py",
+        "neuraloperator_tpu_torch/scripts/train_family_quality.py",
+        "neuraloperator_tpu_torch/scripts/train_uqno_darcy.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -159,7 +170,9 @@ def _new_entry_points():
         generate_ns_data,
         serve_model,
         train_darcy,
+        train_family_quality,
         train_navier_stokes,
+        train_uqno_darcy,
     )
     from neuraloperator_tpu_torch.training import load_training_state
 
@@ -181,6 +194,11 @@ def _new_entry_points():
         "eval_ns_superres.main": lambda: eval_ns_superres.main(["--save_dir", str(flagship)]),
         "eval_ns_rollout.main": lambda: eval_ns_rollout.main(["--save_dir", str(flagship)]),
         "train_darcy.main": lambda: train_darcy.main(["--opt.n_epochs", "1"]),
+        "train_family_quality.main": lambda: train_family_quality.main(["--family", "uno"]),
+        "train_uqno_darcy.main": lambda: train_uqno_darcy.main(["--base_epochs", "1"]),
+        "build_model": lambda: train_family_quality.build_model("local_no", 16),
+        "CODANO": lambda: train_family_quality.build_model("codano", 16),
+        "UNO": lambda: train_family_quality.build_model("uno", 16),
     }
 
 
@@ -190,7 +208,8 @@ def _new_entry_points():
                                   "solve_navier_stokes_2d", "load_navier_stokes_pt",
                                   "generate_ns_data.main", "train_navier_stokes.main",
                                   "eval_ns_superres.main", "eval_ns_rollout.main",
-                                  "train_darcy.main"])
+                                  "train_darcy.main", "train_family_quality.main",
+                                  "train_uqno_darcy.main", "build_model", "CODANO", "UNO"])
 def test_checkpoint_solver_and_eval_entry_points_refuse_the_cpu_fallback(no_card, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _new_entry_points()[name]()

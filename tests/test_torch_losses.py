@@ -122,7 +122,8 @@ def test_names_and_unported_losses():
         H1Loss(d=4)
     with pytest.raises(ValueError):
         LpLoss(reduction="max")
-    for name in ("HdivLoss", "MSELoss", "PointwiseQuantileLoss"):
+    assert tl.PointwiseQuantileLoss(0.1).name == jl.PointwiseQuantileLoss(0.1).name
+    for name in ("HdivLoss", "MSELoss"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(tl, name)()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -24,7 +24,10 @@ within relative l2 5e-2, evaluation figures within 10%. A Tucker TFNO's
 gradients on the card against the CPU: 1e-4 per parameter, as the FNO's;
 its "reconstructed" contraction against its "factorized" one: the output
 within 1e-5, each gradient within 1e-4 (the same arithmetic in another
-order: the weight rebuilt first, then K1-K3).
+order: the weight rebuilt first, then K1-K3). UNO, LocalNO and CODANO at
+their recorded widths, and a CODANO with positional encodings and a CLS
+token, card against CPU: the forward within 1e-5, each gradient within
+1e-4, as the FNO's.
 """
 
 import json
@@ -776,3 +779,78 @@ def test_darcy_entry_point_on_the_card(card, tmp_path, monkeypatch):
     assert {k: after[k] - before[k] for k in after} == {
         "mode_contraction": 4 * (steps + evals), "mode_contraction_dx": 4 * steps,
         "mode_contraction_dw": 4 * steps}
+
+
+# the Darcy families at their recorded widths (scripts/train_family_quality.py),
+# and a small CODANO with positional encodings and a CLS token (their
+# irfftn of a spectrum that is not Hermitian), each with the K1, K2 and K3
+# launches of one forward and backward
+FAMILY_CASES = {"uno": 5, "local_no": 4, "codano": 0, "codano_pe_cls": 0}
+
+
+def _family_model(case, device):
+    from neuraloperator_tpu_torch.models import CODANO
+    from neuraloperator_tpu_torch.scripts.train_family_quality import build_model
+
+    gen = torch.Generator().manual_seed(0)
+    if case == "codano_pe_cls":
+        return CODANO(n_modes=((6, 6),) * 2, n_layers=2, hidden_variable_codimension=4,
+                      lifting_channels=8, projection_channels=8, attention_token_dim=2,
+                      per_channel_attention=False, use_positional_encoding=True,
+                      positional_encoding_dim=2, variable_ids=("a", "b"),
+                      enable_cls_token=True, domain_padding=0.25, device=device,
+                      generator=gen)
+    return build_model(case, 16, device=device, generator=gen)
+
+
+@pytest.mark.parametrize("case", sorted(FAMILY_CASES))
+def test_family_step_on_the_card_matches_the_cpu(card, case):
+    """A forward of batch 2 at 16² and its gradients, card against CPU from
+    the same weights: 1e-5 relative l2 and 1e-4 per leaf (against the larger
+    of its norm and 1% of the whole gradient's); K1 once per spectral layer
+    and K2/K3 once per spectral layer and backward (none for CODANO)."""
+    model = _family_model(case, "cuda")
+    cpu_model = _family_model(case, "cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gen = torch.Generator().manual_seed(1)
+    n_vars = 2 if case == "codano_pe_cls" else 1
+    x = torch.randn(2, n_vars, 16, 16, generator=gen)
+    kwargs = {"input_variable_ids": ["b", "a"]} if case == "codano_pe_cls" else {}
+    outs, grads, launches = [], [], []
+    for m, device in ((model, "cuda"), (cpu_model, "cpu")):
+        before = tsc.launch_counts()
+        out = m(x.to(device), **kwargs)
+        out.sub(1.0).square().mean().backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        after = tsc.launch_counts()
+        launches.append({k: after[k] - before[k] for k in after})
+        outs.append(out.detach().cpu().double())
+        grads.append({n: p.grad.detach().cpu().double() for n, p in m.named_parameters()})
+    layers = FAMILY_CASES[case]
+    assert launches[0] == {"mode_contraction": layers, "mode_contraction_dx": layers,
+                           "mode_contraction_dw": layers}
+    assert float((outs[0] - outs[1]).norm() / outs[1].norm()) <= 1e-5
+    total = sum(float(g.square().sum()) for g in grads[1].values()) ** 0.5
+    for name, ref in grads[1].items():
+        scale = max(float(ref.norm()), 1e-2 * total)
+        assert float((grads[0][name] - ref).norm()) / scale <= 1e-4, name
+
+
+def test_uqno_entry_point_on_the_card(card, tmp_path, monkeypatch):
+    """``train_uqno_darcy`` on the card at a small size on generated files:
+    the calibration indices of its split, coverages in [0, 1], and the
+    solution detached."""
+    from neuraloperator_tpu_torch.data.datasets import darcy
+    from neuraloperator_tpu_torch.scripts import train_uqno_darcy
+
+    monkeypatch.setattr(darcy, "DATA_ROOT", tmp_path)
+    result = train_uqno_darcy.main([
+        "--n_train", "64", "--n_train_solution", "32", "--n_train_residual", "16",
+        "--n_calib_residual", "16", "--base_epochs", "2", "--residual_epochs", "2",
+        "--verbose", "false"])
+    assert (result["domain_idx"], result["function_idx"]) == \
+        train_uqno_darcy.get_coeff_quantile_idx(0.1, 0.05, 16, 256)
+    assert 0.0 <= result["pointwise"] <= 1.0 and 0.0 <= result["function"] <= 1.0
+    solution, band = result["uqno"](torch.zeros(1, 1, 16, 16, device="cuda"))
+    assert not solution.requires_grad and band.requires_grad
