@@ -13,7 +13,8 @@ Phases, each printed with its elapsed seconds as it goes:
    gradient, K3 its weight gradient) against its plain PyTorch version at
    the flagship shapes (K1 at batches 1, 8 and 16, K2 and K3 at 8, each in
    f32 and bf16; at the Darcy recipe's, phase 15; at UNO's widest layer,
-   phase 17; and K2/K3 at UQNO's batch, phase 18), and times the kernel,
+   phase 17; K2/K3 at UQNO's batch, phase 18; K1-K3 at the FNO-3D's and
+   the multi-variable FNO's, phase 20), and times the kernel,
    the plain version and one library
    call on the device (``_timing.device_ms``: the launches queued behind a
    device-side wait, so the CUDA events do not time the host's enqueue
@@ -199,7 +200,24 @@ Phases, each printed with its elapsed seconds as it goes:
    files less a slack, the UQNO's solution getting no gradient, and K1-K3
    counted against the script's batches. The kernels phase also checks and
    times K2/K3 at the Darcy shapes at UQNO's batch of 16;
-19. prints one ``{"kernels": [...]}`` line, then, as the last line,
+19. sfno: the port's ``scripts.train_sfno_swe`` at its defaults, whole (the
+   SFNO of 296,707 parameters, 20 epochs on 200 pairs at 32x64 made on the
+   host by the package's SWE generator, evaluated at 32x64 and zero-shot
+   at 64x128): both figures within twice the JAX script's own on the CPU,
+   the training loss falling, no launch of K1-K3 (its contractions are
+   einsums, its transforms matmuls); the loop step's ms, a profile of 10
+   loop steps (the device's idle share, kernels by kind), the peak memory,
+   one step of batch 2 card against CPU, and ``sht``/``isht`` on the card
+   against the CPU on both grids;
+20. mhd and multivar: the port's ``scripts.train_mhd64`` at its defaults
+   (the FNO-3D, 659,027 parameters, 5 epochs on its synthetic 16³ fields)
+   and ``scripts.train_codano_multivar`` cut to 64 training pairs and 2 /
+   1 / 2 epochs (``--no_results``): finite figures, K1-K3 launched as the
+   batches ask (the FNO-3D's and the matched FNO's layers; CODANO's none),
+   one FNO-3D step card against CPU. The kernels phase also checks and
+   times K1-K3 at both FNOs' shapes (16 x 16 channels over 320 modes at
+   batch 2; over 40 modes at batch 16);
+21. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -514,6 +532,32 @@ UNO_CHANNELS, UNO_MODES = (64, 32), 8 * 5
 UQNO_BATCH = 16
 UQNO_JAX = {"pointwise": 0.997, "function": 1.000}
 UQNO_SLACK = {"pointwise": 0.05, "function": 0.05}
+
+# the sfno phase: scripts/train_sfno_swe.py at its defaults, whole (200 pairs
+# at 32x64 from the package's SWE generator, tests of 40 at 32x64 and 64x128,
+# batch 32, the SFNO at n_modes (16, 32), hidden 64, 2 layers, 20 epochs of
+# AdamW over a cosine annealing). Its figures within twice the JAX script's
+# own at its defaults on the CPU, on the same data (the two generators agree
+# within 2e-7, tests/test_torch_sfno.py), from its Trainer's PRNGKey(0) init:
+# (32, 64)_l2 0.00472, (64, 128)_l2 0.00473. The port starts from its own
+# seeded init; an untrained model reads about 1.
+SFNO_PARAMS = 296_707
+SFNO_JAX = {"(32, 64)_l2": 0.00472, "(64, 128)_l2": 0.00473}
+SFNO_BOUNDS = {k: 2 * v for k, v in SFNO_JAX.items()}
+SFNO_PROFILE_STEPS = 10
+# the SHT on the card against the CPU: f32 matmuls summed in another order
+# (TF32 off in the DFT matmuls; the Legendre einsums at setup()'s "highest")
+SHT_TOL = 1e-5
+# the mhd and multivar phase: scripts/train_mhd64.py at its defaults (the
+# FNO-3D at n_modes (8, 8, 8), hidden 16, on 16 + 4 synthetic pairs at 16³,
+# batch 2, 5 epochs): its contraction is 16 x 16 channels over 8 x 8 x 5 =
+# 320 kept modes; scripts/train_codano_multivar.py cut to MULTIVAR_FLAGS,
+# whose parameter-matched FNO (hidden 16, 2 layers, 8 x 8 modes) contracts
+# 16 x 16 channels over 8 x 5 = 40 modes at batch 16
+MHD_CHANNELS, MHD_MODES, MHD_BATCH = 16, 8 * 8 * 5, 2
+MULTIVAR_FLAGS = ["--n_train", "64", "--n_test", "32", "--pretrain_epochs", "2",
+                  "--ft_epochs", "1", "--full_epochs", "2", "--no_results"]
+MULTIVAR_CHANNELS, MULTIVAR_MODES, MULTIVAR_BATCH = 16, 8 * 5, 16
 
 # the profile tables' kinds of kernel, by words in a kernel's name (first match)
 KERNEL_KINDS = (("K1-K3", ("channel_contraction", "weight_grad")),
@@ -949,8 +993,9 @@ def train() -> dict:
     return out
 
 
-def one_step(model, processor, x, y, device, mixed_precision: bool = False):
-    """One Trainer.train step of the given batch; returns (loss, grads)."""
+def one_step(model, processor, x, y, device, mixed_precision: bool = False, loss=None):
+    """One Trainer.train step of the given batch (H1 at d=2 unless ``loss``
+    says otherwise); returns (loss, grads)."""
     from neuraloperator_tpu_torch.data.datasets import DataLoader, TensorDataset
     from neuraloperator_tpu_torch.losses import H1Loss
     from neuraloperator_tpu_torch.training import Trainer, build_optimizer
@@ -958,7 +1003,8 @@ def one_step(model, processor, x, y, device, mixed_precision: bool = False):
     loader = DataLoader(TensorDataset(x, y), len(x))
     trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device=device,
                       mixed_precision=mixed_precision)
-    metrics = trainer.train(loader, {}, build_optimizer(OPT, 1), training_loss=H1Loss(d=2))
+    metrics = trainer.train(loader, {}, build_optimizer(OPT, 1),
+                            training_loss=loss or H1Loss(d=2))
     return metrics["train_err"], {n: p.grad.detach().float().cpu()
                                   for n, p in model.named_parameters()}
 
@@ -2432,7 +2478,7 @@ def tfno_meta() -> dict:
 
 def no_launches(launches: dict, label: str) -> None:
     if any(launches.values()):
-        raise AssertionError(f"{label} launched {launches}: the factorized TFNO runs no kernel")
+        raise AssertionError(f"{label} launched {launches}: this path runs none of K1-K3")
 
 
 def tfno_train(processor, recipe_step_ms: float, save_dir: Path) -> dict:
@@ -3275,6 +3321,232 @@ def uqno() -> dict:
             **{k: v for k, v in result.items() if k != "uqno"}}
 
 
+def sfno() -> dict:
+    """(19) the port's train_sfno_swe at its defaults on the card."""
+    import re
+
+    from neuraloperator_tpu_torch.data.datasets import (
+        DataLoader,
+        TensorDataset,
+        load_spherical_swe,
+    )
+    from neuraloperator_tpu_torch.losses import LpLoss
+    from neuraloperator_tpu_torch.ops import sht as tsht
+    from neuraloperator_tpu_torch.scripts import train_sfno_swe as tsfno
+    from neuraloperator_tpu_torch.training import Trainer, adamw
+
+    cfg = tsfno.SWEConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    record: list = []
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        metrics = run_recipe_entry_point([], record, script=tsfno)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    no_launches(launches, "sfno: train_sfno_swe")
+    trainer = record[-1][0]
+    model = trainer.model
+    train_errs = [float(v) for v in re.findall(r"train=([0-9.eE+-]+)", tee.text())]
+    n_params = int(re.findall(r"^model parameters: (\d+)$", tee.text(), re.M)[-1])
+    steps = math.ceil(cfg.n_train / cfg.batch_size)
+    step_ms = 1e3 * metrics["epoch_time"] / steps
+    log(f"sfno: {cfg.n_epochs} epochs of {steps} steps in {run_s:.1f} s (data made on the host "
+        f"included); train losses {train_errs}; final {metrics}; {n_params} parameters; "
+        f"{step_ms:.3f} ms per loop step of batch {cfg.batch_size} (last epoch); launches "
+        f"{launches}; peak {peak_mib:.0f} MiB")
+    if n_params != SFNO_PARAMS:
+        raise AssertionError(f"sfno: {n_params} parameters, expected {SFNO_PARAMS}")
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad or not train_errs or not all(map(math.isfinite, train_errs)):
+        raise AssertionError(f"sfno: non-finite metrics {bad} or train losses {train_errs}")
+    if not train_errs[-1] < train_errs[0]:
+        raise AssertionError(f"sfno: the training loss did not fall: {train_errs}")
+    misses = {k: (metrics[k], b) for k, b in SFNO_BOUNDS.items() if not metrics[k] <= b}
+    if misses:
+        raise AssertionError(f"sfno: evaluations above twice the JAX figures {misses}")
+
+    # 10 loop steps of batch 32 from the trained weights, profiled, on the
+    # script's training pairs (its generator draws them first: made again)
+    loader, _, _ = load_spherical_swe(n_train=cfg.n_train, n_test=0, batch_size=cfg.batch_size,
+                                      test_batch_sizes=(), train_resolution=(cfg.nlat, cfg.nlon),
+                                      test_resolutions=())
+    arrays = loader.dataset.arrays
+    n_prof = SFNO_PROFILE_STEPS * cfg.batch_size
+    reps = math.ceil(n_prof / len(arrays["x"]))
+    prof_loader = DataLoader(TensorDataset(np.concatenate([arrays["x"]] * reps)[:n_prof],
+                                           np.concatenate([arrays["y"]] * reps)[:n_prof]),
+                             cfg.batch_size)
+    l2 = LpLoss(d=2, reduction="sum")
+
+    def loop_steps():
+        t = Trainer(model=model, n_epochs=1, device="cuda")
+        t.train(prof_loader, {}, adamw(cfg.learning_rate, weight_decay=1e-4), training_loss=l2)
+
+    loop_steps()  # warm
+    profile = profile_window(f"{SFNO_PROFILE_STEPS} sfno loop steps of batch {cfg.batch_size}",
+                             loop_steps)
+
+    # one step of batch 2, card against CPU from the same weights
+    cpu_model = tsfno.build_model(cfg, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x2, y2 = arrays["x"][:2], arrays["y"][:2]
+    loss_gpu, grads_gpu = one_step(model, None, x2, y2, "cuda", loss=l2)
+    loss_cpu, grads_cpu = one_step(cpu_model, None, x2, y2, "cpu", loss=l2)
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err = grad_errors(grads_gpu, grads_cpu)
+    worst = max(grad_err, key=grad_err.get)
+    log(f"sfno: one step of batch 2, card vs CPU: loss rel {loss_err:.2e} (tol "
+        f"{STEP_LOSS_TOL:.0e}), gradients max {grad_err[worst]:.2e} ({worst}, tol "
+        f"{STEP_GRAD_TOL:.0e})")
+    if not loss_err <= STEP_LOSS_TOL or not grad_err[worst] <= STEP_GRAD_TOL:
+        raise AssertionError(f"sfno: card and CPU steps differ: loss {loss_err}, "
+                             f"gradients {grad_err}")
+
+    # the SHT and its inverse on the card against the CPU, both grids
+    reset_launches()
+    x = torch.randn(2, 3, cfg.nlat, cfg.nlon, generator=torch.Generator().manual_seed(SEED + 40))
+    lmax, mmax = cfg.n_modes[0], cfg.n_modes[1] // 2
+    sht_err = {}
+    for grid in ("equiangular", "legendre-gauss"):
+        card = tsht.sht(x.cuda(), lmax, mmax, grid)
+        host = tsht.sht(x, lmax, mmax, grid)
+        back_card = tsht.isht(card, 2 * cfg.nlat, 2 * cfg.nlon, grid).cpu()
+        back_host = tsht.isht(host, 2 * cfg.nlat, 2 * cfg.nlon, grid)
+        sht_err[grid] = (rel_l2(card.real.cpu(), card.imag.cpu(), host.real, host.imag),
+                         rel_l2(back_card, torch.zeros_like(back_card), back_host,
+                                torch.zeros_like(back_host)))
+    log(f"sfno: sht / isht (to {2 * cfg.nlat}x{2 * cfg.nlon}), card vs CPU, rel_l2 {sht_err} "
+        f"(tol {SHT_TOL:.0e})")
+    if not all(e <= SHT_TOL for pair in sht_err.values() for e in pair):
+        raise AssertionError(f"sfno: the SHT differs between card and CPU: {sht_err}")
+    no_launches(read_launches(), "sfno: the SHT")
+    return {"launches": launches, "launches_by_dtype": by_dtype,
+            "metrics": metrics, "train_errs": train_errs, "n_params": n_params,
+            "run_s": run_s, "step_ms": step_ms, "peak_mib": peak_mib, "profile": profile,
+            "step_loss_rel_err": loss_err, "step_grad_rel_l2_max": grad_err[worst],
+            "sht_rel_l2": sht_err}
+
+
+def mhd() -> dict:
+    """(20a) the port's train_mhd64 at its defaults on the card."""
+    import re
+
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.models import get_model
+    from neuraloperator_tpu_torch.scripts import train_mhd64 as tmhd
+
+    cfg = tmhd.MHDConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    record: list = []
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        metrics = run_recipe_entry_point([], record, script=tmhd)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    only_dtype(by_dtype, "float32")
+    train_errs = [float(v) for v in re.findall(r"train=([0-9.eE+-]+)", tee.text())]
+    n_params = int(re.findall(r"^params: (\d+)$", tee.text(), re.M)[-1])
+    steps = math.ceil(cfg.data.n_train / cfg.data.batch_size)
+    evals = math.ceil(cfg.data.n_test / cfg.data.batch_size)
+    step_ms = 1e3 * metrics["epoch_time"] / steps
+    log(f"mhd: {cfg.opt.n_epochs} epochs of {steps} steps in {run_s:.1f} s; train losses "
+        f"{train_errs}; final {metrics}; {n_params} parameters; {step_ms:.3f} ms per loop step "
+        f"of batch {cfg.data.batch_size} (last epoch); launches {launches}; peak "
+        f"{peak_mib:.0f} MiB")
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad or len(train_errs) != cfg.opt.n_epochs or not all(map(math.isfinite, train_errs)):
+        raise AssertionError(f"mhd: non-finite metrics {bad} or train losses {train_errs}")
+    layers, epochs = cfg.model.n_layers, cfg.opt.n_epochs
+    expected = {"mode_contraction": layers * epochs * (steps + evals),
+                "mode_contraction_dx": layers * epochs * steps,
+                "mode_contraction_dw": layers * epochs * steps}
+    if launches != expected:
+        raise AssertionError(f"mhd: launched {launches}, expected {expected}")
+
+    # one step of batch 2, card against CPU from the same weights
+    model = record[-1][0].model
+    cpu_model = get_model(cfg.to_dict(), device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x2, y2 = tmhd._synthetic_mhd(2, cfg.data.resolution, seed=SEED + 50)
+    h1 = H1Loss(d=3)
+    loss_gpu, grads_gpu = one_step(model, None, x2, y2, "cuda", loss=h1)
+    loss_cpu, grads_cpu = one_step(cpu_model, None, x2, y2, "cpu", loss=h1)
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err = grad_errors(grads_gpu, grads_cpu)
+    worst = max(grad_err, key=grad_err.get)
+    log(f"mhd: one step of batch 2, card vs CPU: loss rel {loss_err:.2e} (tol "
+        f"{STEP_LOSS_TOL:.0e}), gradients max {grad_err[worst]:.2e} ({worst}, tol "
+        f"{STEP_GRAD_TOL:.0e})")
+    if not loss_err <= STEP_LOSS_TOL or not grad_err[worst] <= STEP_GRAD_TOL:
+        raise AssertionError(f"mhd: card and CPU steps differ: loss {loss_err}, "
+                             f"gradients {grad_err}")
+    return {"launches": launches, "launches_by_dtype": by_dtype, "metrics": metrics,
+            "train_errs": train_errs, "n_params": n_params, "run_s": run_s,
+            "step_ms": step_ms, "peak_mib": peak_mib, "step_loss_rel_err": loss_err,
+            "step_grad_rel_l2_max": grad_err[worst]}
+
+
+def multivar() -> dict:
+    """(20b) the port's train_codano_multivar, cut to MULTIVAR_FLAGS, on the card."""
+    from neuraloperator_tpu_torch.scripts import train_codano_multivar as tmulti
+
+    cfg = tmulti.parse_args(MULTIVAR_FLAGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = tmulti.main(MULTIVAR_FLAGS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    only_dtype(by_dtype, "float32")
+    arms = result["arms"]
+    figures = {arm: {k: v for k, v in row.items() if k in ("test_l2", "test_l2_2var",
+                                                               "zero_shot_l2")}
+               for arm, row in arms.items()}
+    log(f"multivar: {run_s:.1f} s; test figures {figures}; launches {launches}; peak "
+        f"{peak_mib:.0f} MiB")
+    values = [v for row in figures.values() for v in row.values()]
+    if len(arms) != 6 or not all(map(math.isfinite, values)):
+        raise AssertionError(f"multivar: missing or non-finite figures {figures}")
+    if arms["fno_ft_budget"]["n_params"] != arms["fno_full"]["n_params"]:
+        raise AssertionError(f"multivar: the FNO arms differ: {arms}")
+    # K1-K3 only on the FNO arms (CODANO's Tucker layers contract by
+    # einsums): K1 per layer and forward (steps, then one test forward per
+    # logged epoch and one at the end), K2/K3 per layer and step
+    steps = cfg.n_train // cfg.batch
+
+    def evals(epochs):
+        return len({e for e in range(epochs) if e % 25 == 0 or e == epochs - 1}) + 1
+
+    runs = (cfg.ft_epochs, cfg.full_epochs)
+    expected = {"mode_contraction": cfg.n_layers * sum(e * steps + evals(e) for e in runs),
+                "mode_contraction_dx": cfg.n_layers * steps * sum(runs),
+                "mode_contraction_dw": cfg.n_layers * steps * sum(runs)}
+    if launches != expected:
+        raise AssertionError(f"multivar: launched {launches}, expected {expected}")
+    return {"launches": launches, "launches_by_dtype": by_dtype, "run_s": run_s,
+            "peak_mib": peak_mib, "arms": arms}
+
+
+def mhd_multivar() -> dict:
+    """(20) train_mhd64 and train_codano_multivar; the path's launches are both runs'."""
+    runs = {"mhd": mhd(), "multivar": multivar()}
+    launches, by_dtype = sum_launches(runs.values())
+    return {"launches": launches, "launches_by_dtype": by_dtype, **runs}
+
+
 def kernel_line(variants, paths) -> list:
     """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
     with its launches summed over the paths, by path, by dtype, and by path
@@ -3357,6 +3629,14 @@ def main() -> None:
                                      channels=(DARCY_CHANNELS, DARCY_CHANNELS),
                                      modes=DARCY_MODES))
                  for name in ("mode_contraction_dx", "mode_contraction_dw")]
+    # the FNO-3D of train_mhd64 (16 x 16 channels over 320 modes at batch 2)
+    # and the matched FNO of train_codano_multivar (16 x 16 over 40 at 16)
+    variants += [dict(name=name, recipe=recipe,
+                      **check_kernel(name, batch, torch.float32, channels=(ch, ch), modes=m))
+                 for recipe, batch, ch, m in (("mhd", MHD_BATCH, MHD_CHANNELS, MHD_MODES),
+                                              ("multivar", MULTIVAR_BATCH, MULTIVAR_CHANNELS,
+                                               MULTIVAR_MODES))
+                 for name in kernel_specs()]
     k3 = {v["dtype"]: v["ms"] for v in variants if v["name"] == "mode_contraction_dw"
           and v["batch"] == TRAIN_BATCH and v["shape"]["M"] == MODES}
     k1 = next(v["ms"] for v in variants if v["name"] == "mode_contraction"
@@ -3391,6 +3671,8 @@ def main() -> None:
         families_run = families()
         uqno_run = uqno()
     families_run["generate_s"] = darcy_files_s
+    sfno_run = sfno()
+    mhd_multivar_run = mhd_multivar()
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
                                      "recipe": recipe_run, "mixed": mixed_run,
@@ -3398,7 +3680,8 @@ def main() -> None:
                                      "options": options_run, "quantize_export": quantize_run,
                                      "remat_scan": remat_scan_run, "tfno": tfno_run,
                                      "darcy": darcy_run, "layer_options": layer_options_run,
-                                     "families": families_run, "uqno": uqno_run})
+                                     "families": families_run, "uqno": uqno_run,
+                                     "sfno": sfno_run, "mhd_multivar": mhd_multivar_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
@@ -3435,7 +3718,9 @@ def main() -> None:
         f"{ {f: r['metrics'] for f, r in families_run['runs'].items()} }, loop step ms "
         f"{ {f: round(r['step_ms'], 3) for f, r in families_run['runs'].items()} }; uqno "
         f"coverage {uqno_run['pointwise']:.4f} / {uqno_run['function']:.3f} in "
-        f"{uqno_run['run_s']:.1f} s")
+        f"{uqno_run['run_s']:.1f} s; sfno {sfno_run['metrics']} in {sfno_run['run_s']:.1f} s, "
+        f"loop step {sfno_run['step_ms']:.3f} ms; mhd {mhd_multivar_run['mhd']['metrics']}, "
+        f"multivar in {mhd_multivar_run['multivar']['run_s']:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -161,6 +161,18 @@ class TFNO_Medium2d(FNO_Medium2d):
 
 
 @dataclass
+class SFNO_Small2d(ConfigBase):
+    """Spherical FNO on three fields (the JAX package's preset)."""
+
+    model_arch: str = "sfno"
+    data_channels: int = 3
+    out_channels: int = 3
+    n_modes: List[int] = field(default_factory=lambda: [16, 16])
+    hidden_channels: int = 32
+    n_layers: int = 4
+
+
+@dataclass
 class DistributedConfig(ConfigBase):
     use_distributed: bool = False
     model_parallel_size: int = 1
@@ -194,5 +206,5 @@ class DarcyConfig(ConfigBase):
 
 
 __all__ = ["ConfigBase", "DarcyConfig", "DarcyDataConfig", "DistributedConfig",
-           "FNOModelConfig", "FNO_Medium2d", "FNO_Small2d", "OptConfig", "TFNO_Medium2d",
-           "make_config_from_cli"]
+           "FNOModelConfig", "FNO_Medium2d", "FNO_Small2d", "OptConfig", "SFNO_Small2d",
+           "TFNO_Medium2d", "make_config_from_cli"]

@@ -8,7 +8,9 @@ stabilizer and complex data. Submodules keep the JAX names ``conv_{i}``,
 ``norm_{j}`` (two per layer); on complex data the skips and channel MLPs
 are ``ComplexValued`` pairs. AdaIN's conditioning embedding is a call
 argument (``ada_in_embedding``), as in the JAX module. ``conv_module`` is
-``SpectralConv``: the other convolutions arrive with their families.
+any convolution class with ``SpectralConv``'s constructor fields (the SFNO
+passes ``SphericalConv``); ``enforce_hermitian_symmetry`` and
+``weight_dtype`` reach only subclasses of ``SpectralConv``, as in JAX.
 """
 
 from typing import Callable, Optional, Sequence
@@ -16,7 +18,6 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from .._common import not_ported
 from ..utils import validate_scaling_factor
 from .channel_mlp import ChannelMLP, gelu
 from .complex import CGELU, ComplexValued, ctanh
@@ -67,8 +68,6 @@ class FNOBlocks(nn.Module):
     ):
         super().__init__()
         del decomposition_kwargs
-        if conv_module is not SpectralConv:
-            raise not_ported(f"FNOBlocks conv_module={conv_module!r}", "the other families")
         if norm is not None and norm not in NORMS:
             raise ValueError(
                 f"Got norm={norm} but expected None or one of "
@@ -90,6 +89,10 @@ class FNOBlocks(nn.Module):
         if fno_skip is not None and conv_bias_kernel != 1 and fno_skip.lower() != "linear":
             raise ValueError("conv_bias_kernel can only differ from 1 when fno_skip='linear'.")
         rsf = validate_scaling_factor(resolution_scaling_factor, n_dim, n_layers)
+        conv_kwargs = {}
+        if issubclass(conv_module, SpectralConv):
+            conv_kwargs = {"enforce_hermitian_symmetry": enforce_hermitian_symmetry,
+                           "weight_dtype": weight_dtype}
 
         def maybe_complex(factory):
             return ComplexValued(factory) if complex_data else factory()
@@ -113,10 +116,9 @@ class FNOBlocks(nn.Module):
                 separable=separable,
                 fixed_rank_modes=fixed_rank_modes,
                 complex_data=complex_data,
-                enforce_hermitian_symmetry=enforce_hermitian_symmetry,
-                weight_dtype=weight_dtype,
                 device=device,
                 generator=generator,
+                **conv_kwargs,
             ))
             if fno_skip is not None:
                 self.add_module(f"fno_skip_{i}", maybe_complex(fno_skip_module))

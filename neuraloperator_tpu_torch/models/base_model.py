@@ -77,10 +77,11 @@ def get_model_class(arch: str) -> type:
 def _named_objects() -> Dict[str, Dict[str, Any]]:
     from ..layers.channel_mlp import gelu
     from ..layers.spectral_convolution import SpectralConv
+    from ..layers.spherical_convolution import SphericalConv
 
     return {
         "__callable__": {"gelu": gelu},
-        "__class__": {"SpectralConv": SpectralConv},
+        "__class__": {"SpectralConv": SpectralConv, "SphericalConv": SphericalConv},
     }
 
 

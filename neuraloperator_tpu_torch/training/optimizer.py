@@ -37,6 +37,7 @@ each other's ``optimizer.msgpack``.
 """
 
 import functools
+import math
 import warnings
 from typing import Callable, Dict, Iterable, NamedTuple, Optional, Sequence, Union
 
@@ -76,6 +77,36 @@ def step_lr(base_lr: float, step_size: int, gamma: float = 0.5,
     """Staircase decay by ``gamma`` every ``step_size`` epochs, as a schedule
     of the update count (``optax.exponential_decay(staircase=True)``)."""
     return StepLRSchedule(base_lr, step_size * steps_per_epoch, gamma)
+
+
+class CosineAnnealingSchedule:
+    """Cosine decay from ``base_lr`` to 0 over ``decay_steps`` updates, then 0.
+
+    Called with a Python int it gives a float; called with the optimizer's
+    int32 count tensor it gives an f32 tensor on the count's device (no
+    host read, so a CUDA graph can capture it), formed as
+    ``optax.cosine_decay_schedule`` forms it with alpha 0 and exponent 1:
+    ``base * 0.5 * (1 + cos(pi * min(count, T) / T))`` in f32.
+    """
+
+    def __init__(self, base_lr: float, decay_steps: int):
+        if not decay_steps > 0:
+            raise ValueError(f"cosine annealing needs positive decay steps, got {decay_steps}")
+        self.base_lr, self.decay_steps = base_lr, decay_steps
+
+    def __call__(self, count):
+        T = self.decay_steps
+        if isinstance(count, torch.Tensor):
+            c = torch.clamp(count.float(), max=float(T))
+            return self.base_lr * (0.5 * (1 + torch.cos(math.pi * c / T)))
+        return self.base_lr * 0.5 * (1 + math.cos(math.pi * min(count, T) / T))
+
+
+def cosine_annealing(base_lr: float, t_max: int,
+                     steps_per_epoch: int = 1) -> CosineAnnealingSchedule:
+    """Cosine annealing over ``t_max`` epochs of ``steps_per_epoch`` updates
+    (``optax.cosine_decay_schedule(base_lr, t_max * steps_per_epoch)``)."""
+    return CosineAnnealingSchedule(base_lr, t_max * steps_per_epoch)
 
 
 class Quantized8(NamedTuple):

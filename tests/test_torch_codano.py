@@ -22,6 +22,14 @@ Tolerances:
 - H1 gradients, f32 against f32: within 1e-4 relative l2 per leaf, against
   the larger of the leaf's norm and 1% of the whole gradient's
   (``tests/test_torch_layer_options.py``);
+- ``per_channel_attention=True`` (no recorded configuration uses it), f32
+  against JAX's forward with x64 on: within 5e-5 relative l2. At the
+  first seed the model is ill-conditioned: a 1e-7 relative perturbation
+  of its float64 weights moves its float64 output by 9.9e-6, so the
+  f32-rounded DFT and interpolation constants both packages keep put the
+  port's own float64 forward 3.5e-5 from JAX's. CPU probes over seeds
+  0-3 at 16² and 12²: the port's f32 forward 5.6e-7 to 3.7e-5 from JAX's
+  x64 one, JAX's f32 forward 4.0e-7 to 5.8e-6 from it;
 - ``extend_variable_ids``: the known variables' outputs equal to the bit.
 """
 
@@ -40,6 +48,7 @@ from neuraloperator_tpu_torch.models import CODANO, extend_variable_ids, get_mod
 torch.set_num_threads(1)
 
 FORWARD_TOL, GRAD_TOL = 3e-5, 1e-4
+PER_CHANNEL_X64_TOL = 5e-5
 
 
 def _rand(seed, *shape):
@@ -117,6 +126,26 @@ def test_codano_forward(case, res):
              **{k: torch.from_numpy(v) for k, v in call.items()}).detach().numpy()
     assert got.shape == want.shape == (2, 2, res, res)
     assert _rel_l2(got, want) <= FORWARD_TOL
+
+
+@pytest.mark.parametrize("res", [16, 12])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_codano_per_channel_attention_against_jax_float64(seed, res):
+    """Tokens of one channel each, keys and queries at half the resolution;
+    the reference is JAX's forward of the same weights with x64 on."""
+    jm, tm = _codano_pair(per_channel_attention=True)
+    x, _, _ = _codano_inputs(res, {}, seed=seed)
+    params = jm.init(jax.random.PRNGKey(seed), jnp.asarray(x))["params"]
+    _load(tm, params)
+    with jax.enable_x64(True):
+        params64 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a), jnp.float64),
+                                          params)
+        want = np.asarray(jax.jit(lambda p, x: jm.apply({"params": p}, x))(
+            params64, jnp.asarray(x, jnp.float64)))
+    assert want.dtype == np.float64
+    got = tm(torch.from_numpy(x)).detach().numpy()
+    assert got.shape == want.shape == (2, 2, res, res)
+    assert _rel_l2(got, want) <= PER_CHANNEL_X64_TOL
 
 
 def test_codano_h1_gradients():

@@ -278,9 +278,13 @@ def test_unported_options_raise():
     conv = SpectralConv(2, 2, (4, 4), device="cpu")
     assert conv(torch.zeros(1, 2, 520, 8)).shape == (1, 2, 520, 8)
     assert conv(torch.zeros(1, 2, 8, 520)).shape == (1, 2, 8, 520)
-    # convolutions other than SpectralConv arrive with their families
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FNOBlocks(4, 4, (4, 4), conv_module=torch.nn.Identity, device="cpu")
+    # FNOBlocks takes any convolution class, as in JAX: the SFNO's
+    # SphericalConv is ported (tests/test_torch_sfno.py holds it to JAX)
+    from neuraloperator_tpu_torch.layers.spherical_convolution import SphericalConv
+
+    spherical = FNOBlocks(4, 4, (4, 8), conv_module=SphericalConv, device="cpu")
+    assert isinstance(spherical.conv_0, SphericalConv)
+    assert spherical(torch.zeros(1, 4, 8, 16)).shape == (1, 4, 8, 16)
 
 
 @pytest.mark.parametrize("n_modes,res", [((8,), (32,)), ((4, 4, 4), (8, 9, 10))],

@@ -90,6 +90,13 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/models/uqno.py",
         "neuraloperator_tpu_torch/scripts/train_family_quality.py",
         "neuraloperator_tpu_torch/scripts/train_uqno_darcy.py",
+        "neuraloperator_tpu_torch/ops/sht.py",
+        "neuraloperator_tpu_torch/layers/spherical_convolution.py",
+        "neuraloperator_tpu_torch/models/sfno.py",
+        "neuraloperator_tpu_torch/data/datasets/spherical_swe.py",
+        "neuraloperator_tpu_torch/scripts/train_sfno_swe.py",
+        "neuraloperator_tpu_torch/scripts/train_mhd64.py",
+        "neuraloperator_tpu_torch/scripts/train_codano_multivar.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -169,9 +176,12 @@ def _new_entry_points():
         eval_ns_superres,
         generate_ns_data,
         serve_model,
+        train_codano_multivar,
         train_darcy,
         train_family_quality,
+        train_mhd64,
         train_navier_stokes,
+        train_sfno_swe,
         train_uqno_darcy,
     )
     from neuraloperator_tpu_torch.training import load_training_state
@@ -199,6 +209,10 @@ def _new_entry_points():
         "build_model": lambda: train_family_quality.build_model("local_no", 16),
         "CODANO": lambda: train_family_quality.build_model("codano", 16),
         "UNO": lambda: train_family_quality.build_model("uno", 16),
+        "train_sfno_swe.main": lambda: train_sfno_swe.main(["--n_epochs", "1"]),
+        "train_mhd64.main": lambda: train_mhd64.main(["--opt.n_epochs", "1"]),
+        "train_codano_multivar.main": lambda: train_codano_multivar.main(["--no_results"]),
+        "SFNO": lambda: train_sfno_swe.build_model(train_sfno_swe.SWEConfig()),
     }
 
 
@@ -209,7 +223,9 @@ def _new_entry_points():
                                   "generate_ns_data.main", "train_navier_stokes.main",
                                   "eval_ns_superres.main", "eval_ns_rollout.main",
                                   "train_darcy.main", "train_family_quality.main",
-                                  "train_uqno_darcy.main", "build_model", "CODANO", "UNO"])
+                                  "train_uqno_darcy.main", "build_model", "CODANO", "UNO",
+                                  "train_sfno_swe.main", "train_mhd64.main",
+                                  "train_codano_multivar.main", "SFNO"])
 def test_checkpoint_solver_and_eval_entry_points_refuse_the_cpu_fallback(no_card, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _new_entry_points()[name]()
