@@ -14,7 +14,8 @@ Phases, each printed with its elapsed seconds as it goes:
    the flagship shapes (K1 at batches 1, 8 and 16, K2 and K3 at 8, each in
    f32 and bf16; at the Darcy recipe's, phase 15; at UNO's widest layer,
    phase 17; K2/K3 at UQNO's batch, phase 18; K1-K3 at the FNO-3D's and
-   the multi-variable FNO's, phase 20), and times the kernel,
+   the multi-variable FNO's, phase 20; at the Burgers scripts' three,
+   phase 21), and times the kernel,
    the plain version and one library
    call on the device (``_timing.device_ms``: the launches queued behind a
    device-side wait, so the CUDA events do not time the host's enqueue
@@ -217,7 +218,20 @@ Phases, each printed with its elapsed seconds as it goes:
    one FNO-3D step card against CPU. The kernels phase also checks and
    times K1-K3 at both FNOs' shapes (16 x 16 channels over 320 modes at
    batch 2; over 40 modes at batch 16);
-21. prints one ``{"kernels": [...]}`` line, then, as the last line,
+21. burgers: the port's ``scripts.train_burgers`` (the FNO-1D through the
+   ``Trainer``), ``train_burgers_pino`` (the PINO FNO on (t, x) with the
+   data, initial-condition and Burgers-residual losses under ReLoBRaLo) and
+   ``train_burgers_rno`` (the RNO over windows of 4 frames), each at its
+   defaults, whole, on data made on the host into a temporary directory:
+   figures within twice the JAX scripts' own on the CPU, K1-K3 launched as
+   the batches and layers ask (48 K1 launches an RNO forward: 2 layers x 4
+   frames x 6 gates), each script's wall seconds and eager loop step; one
+   RNO step and a 5-step ``RNO.predict`` rollout card against CPU, a
+   profile of 10 RNO loop steps, and ``BurgersEqnLoss`` and
+   ``FourierDiff`` (without and with Legendre and Gram continuation) card
+   against CPU. The kernels phase also checks and times K1-K3 at 24 x 24
+   channels over 5 modes at batches 16 and 8 and over 40 modes at 8;
+22. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -558,6 +572,35 @@ MHD_CHANNELS, MHD_MODES, MHD_BATCH = 16, 8 * 8 * 5, 2
 MULTIVAR_FLAGS = ["--n_train", "64", "--n_test", "32", "--pretrain_epochs", "2",
                   "--ft_epochs", "1", "--full_epochs", "2", "--no_results"]
 MULTIVAR_CHANNELS, MULTIVAR_MODES, MULTIVAR_BATCH = 16, 8 * 5, 16
+# the burgers phase: scripts/train_burgers.py, train_burgers_pino.py and
+# train_burgers_rno.py at their defaults, whole, on data the port makes into
+# a temporary directory. Their figures within twice the JAX scripts' own on
+# the CPU at their defaults: train_burgers on the port's pairs (the JAX
+# generator's hold non-finite solutions, ROADMAP §C) 16_h1 0.06928, 16_l2
+# 0.07029; the PINO on its package's tracked files (2e-7 from the port's)
+# test l2 1.5795055627822876; the RNO test l2 1.7771174907684326. Each port
+# script starts from its own seeded init. Their contractions: 24 x 24
+# channels over 8 // 2 + 1 = 5 modes (the FNO-1D at batch 16; every gate of
+# every RNO cell at batch 8) and over 8 x 5 = 40 (the PINO FNO at batch 8).
+BURGERS_JAX = {"train_burgers": {"16_h1": 0.06928, "16_l2": 0.07029},
+               "train_burgers_pino": {"test_l2": 1.5795055627822876},
+               "train_burgers_rno": {"test_l2": 1.7771174907684326}}
+BURGERS_BOUNDS = {script: {k: 2 * v for k, v in figures.items()}
+                  for script, figures in BURGERS_JAX.items()}
+BURGERS_CHANNELS = 24
+BURGERS_SHAPES = (("burgers", 16, 5), ("rno", 8, 5), ("pino", 8, 40))
+# an RNO forward: 2 layers x a window of 4 x 6 gates, each one K1 launch
+RNO_LAUNCHES_PER_FORWARD = 2 * 4 * 6
+# the RNO loop step timed over 10 steps, profiled over 3 (the profiler's
+# own processing of a step's ~2,800 launches takes seconds)
+RNO_TIMED_STEPS, RNO_PROFILE_STEPS = 10, 3
+RNO_ROLLOUT_STEPS = 5
+# card against CPU in f32: the equation loss and its gradient, and the
+# spectral derivatives of a periodic field, relative to the largest value;
+# with continuation, relative to the largest derivative on the continued
+# domain, where cuFFT and pocketfft round on fields up to 475x the input
+# per axis (an H100 read 3.8e-5 for a second derivative)
+BURGERS_LOSS_TOL, BURGERS_FC_TOL = 1e-5, 1e-4
 
 # the profile tables' kinds of kernel, by words in a kernel's name (first match)
 KERNEL_KINDS = (("K1-K3", ("channel_contraction", "weight_grad")),
@@ -3547,6 +3590,294 @@ def mhd_multivar() -> dict:
     return {"launches": launches, "launches_by_dtype": by_dtype, **runs}
 
 
+@contextlib.contextmanager
+def burgers_files():
+    """A temporary ``burgers.DATA_ROOT``: the Burgers scripts make their
+    pairs and space-time files there, on the host, and read them back."""
+    from neuraloperator_tpu_torch.data.datasets import burgers as tburgers
+
+    data_dir = Path(tempfile.mkdtemp(prefix="burgers-files-"))
+    default_root, tburgers.DATA_ROOT = tburgers.DATA_ROOT, data_dir
+    try:
+        yield data_dir
+    finally:
+        tburgers.DATA_ROOT = default_root
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def burgers_script(module, record=None) -> dict:
+    """``module.main([])`` on the card, at its defaults: its launches counted,
+    its output kept, the model its ``build_model`` made kept; with a
+    ``record`` list, each Trainer evaluation recorded into it."""
+    built, build = [], module.build_model
+
+    def keep(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    module.build_model = keep
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            result = (module.main([]) if record is None
+                      else run_recipe_entry_point([], record, script=module))
+    finally:
+        module.build_model = build
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    only_dtype(by_dtype, "float32")
+    return {"result": result, "model": built[-1], "text": tee.text(), "run_s": run_s,
+            "launches": launches, "launches_by_dtype": by_dtype,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def check_burgers_run(script: str, run: dict, figures: dict, expected: dict) -> None:
+    """Finite figures within their bounds, and the launches the batches ask."""
+    bad = {k: v for k, v in figures.items() if not math.isfinite(v)}
+    misses = {k: (figures[k], b) for k, b in BURGERS_BOUNDS[script].items()
+              if not figures[k] <= b}
+    if bad or misses:
+        raise AssertionError(f"burgers: {script}: non-finite figures {bad} or figures above "
+                             f"twice the JAX script's {misses}")
+    if run["launches"] != expected:
+        raise AssertionError(f"burgers: {script}: launched {run['launches']}, expected "
+                             f"{expected}")
+
+
+def loop_step(model, loss_of):
+    """One eager step of AdamW at lr 1e-3 on ``loss_of(model)``, its loss read
+    on the host as the scripts read it."""
+    from neuraloperator_tpu_torch.training import adamw
+
+    opt = adamw(1e-3).bind(model.named_parameters())
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model)
+        loss.backward()
+        opt.step()
+        return float(loss)
+
+    return step
+
+
+def steps_ms(step, n: int) -> float:
+    """Host-clock ms per call of ``step`` over ``n`` calls, after a warm one."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def burgers_fno1d() -> dict:
+    """(21a) train_burgers at its defaults: the FNO-1D through the Trainer."""
+    from neuraloperator_tpu_torch.scripts import train_burgers as tfno1d
+
+    cfg = tfno1d.BurgersConfig()
+    record: list = []
+    run = burgers_script(tfno1d, record)
+    metrics = run["result"]
+    steps = math.ceil(cfg.data.n_train / cfg.data.batch_size)
+    evals = math.ceil(cfg.data.n_tests[0] / cfg.data.test_batch_sizes[0])
+    layers, epochs = cfg.model.n_layers, cfg.opt.n_epochs
+    expected = {"mode_contraction": layers * (epochs * steps + len(record) * evals),
+                "mode_contraction_dx": layers * epochs * steps,
+                "mode_contraction_dw": layers * epochs * steps}
+    step_ms = 1e3 * metrics["epoch_time"] / steps
+    log(f"burgers: train_burgers: {epochs} epochs of {steps} steps in {run['run_s']:.1f} s "
+        f"(pairs made on the host included); final {metrics}; {step_ms:.3f} ms per loop "
+        f"step of batch {cfg.data.batch_size} (last epoch); launches {run['launches']}; peak "
+        f"{run['peak_mib']:.0f} MiB")
+    check_burgers_run("train_burgers", run, {k: metrics[k] for k in ("16_h1", "16_l2")},
+                      expected)
+    return {"metrics": metrics, "run_s": run["run_s"], "step_ms": step_ms,
+            "launches": run["launches"], "launches_by_dtype": run["launches_by_dtype"],
+            "peak_mib": run["peak_mib"]}
+
+
+def burgers_pino() -> dict:
+    """(21b) train_burgers_pino at its defaults: the custom ReLoBRaLo loop."""
+    from neuraloperator_tpu_torch.data.datasets import burgers as tburgers
+    from neuraloperator_tpu_torch.data.datasets import load_pt_as_numpy
+    from neuraloperator_tpu_torch.losses import BurgersEqnLoss, ICLoss, LpLoss
+    from neuraloperator_tpu_torch.scripts import train_burgers_pino as tpino
+
+    cfg = tpino.PINOConfig()
+    run = burgers_script(tpino)
+    result = run["result"]
+    steps = math.ceil(cfg.n_train / cfg.batch_size)
+    evals = math.ceil(cfg.n_test / cfg.batch_size)
+    layers = run["model"].n_layers
+    expected = {"mode_contraction": layers * (cfg.n_epochs * steps + evals),
+                "mode_contraction_dx": layers * cfg.n_epochs * steps,
+                "mode_contraction_dw": layers * cfg.n_epochs * steps}
+    data = load_pt_as_numpy(tburgers.DATA_ROOT / f"burgers_pino_train_{cfg.resolution}.pt")
+    x = torch.from_numpy(data["x"][:cfg.batch_size, None]).cuda()
+    y = torch.from_numpy(data["y"][:cfg.batch_size, None]).cuda()
+    losses = (LpLoss(d=2), ICLoss(), BurgersEqnLoss(visc=cfg.visc,
+                                                    domain_length=[1.0, 2 * math.pi]))
+
+    def total(model):
+        out = model(x)
+        return losses[0](out, y) + losses[1](out, y) + losses[2](out)
+
+    step_ms = steps_ms(loop_step(run["model"], total), 10)
+    log(f"burgers: train_burgers_pino: {cfg.n_epochs} epochs of {steps} steps in "
+        f"{run['run_s']:.1f} s (space-time files made on the host included); test l2 "
+        f"{result['test_l2']:.6f}, last epoch's parts {result['parts']}, weights "
+        f"{result['weights']}; {step_ms:.3f} ms per loop step of batch {cfg.batch_size} "
+        f"(10 steps after the run); launches {run['launches']}; peak {run['peak_mib']:.0f} MiB")
+    check_burgers_run("train_burgers_pino", run, {"test_l2": result["test_l2"]}, expected)
+    return {"result": result, "run_s": run["run_s"], "step_ms": step_ms,
+            "launches": run["launches"], "launches_by_dtype": run["launches_by_dtype"],
+            "peak_mib": run["peak_mib"]}
+
+
+def burgers_rno() -> dict:
+    """(21c) train_burgers_rno at its defaults; one step and a rollout card
+    against CPU; the loop step's profile."""
+    from neuraloperator_tpu_torch.losses import LpLoss
+    from neuraloperator_tpu_torch.scripts import train_burgers_rno as trno
+
+    cfg = trno.RNOConfig()
+    run = burgers_script(trno)
+    result, model = run["result"], run["model"]
+    steps = math.ceil(cfg.n_train / cfg.batch_size)
+    per = RNO_LAUNCHES_PER_FORWARD
+    expected = {"mode_contraction": per * (cfg.n_epochs * steps + 1),
+                "mode_contraction_dx": per * cfg.n_epochs * steps,
+                "mode_contraction_dw": per * cfg.n_epochs * steps}
+    log(f"burgers: train_burgers_rno: {cfg.n_epochs} epochs of {steps} steps in "
+        f"{run['run_s']:.1f} s (trajectories made on the host included); test l2 "
+        f"{result['test_l2']:.6f}; train l2 by epoch {[round(v, 4) for v in result['train_l2']]}; "
+        f"launches {run['launches']} ({per} K1 a forward); peak {run['peak_mib']:.0f} MiB")
+    check_burgers_run("train_burgers_rno", run, {"test_l2": result["test_l2"]}, expected)
+
+    # one step of batch 8, card against CPU from the trained weights
+    x_train, y_train, x_test, _ = trno.make_data(cfg)
+    xb, yb = torch.from_numpy(x_train[:cfg.batch_size]), torch.from_numpy(y_train[:cfg.batch_size])
+    cpu_model = trno.build_model(device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    l2 = LpLoss(d=1)
+
+    def loss_and_grads(m, device):
+        m.zero_grad(set_to_none=True)
+        loss = l2(m(xb.to(device)), yb.to(device))
+        loss.backward()
+        return float(loss), {n: p.grad.detach().float().cpu() for n, p in m.named_parameters()}
+
+    loss_gpu, grads_gpu = loss_and_grads(model, "cuda")
+    loss_cpu, grads_cpu = loss_and_grads(cpu_model, "cpu")
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err = grad_errors(grads_gpu, grads_cpu)
+    worst = max(grad_err, key=grad_err.get)
+    # the rollout of the test windows, card against CPU
+    with torch.no_grad():
+        roll_card = model.predict(torch.from_numpy(x_test).cuda(), RNO_ROLLOUT_STEPS)
+        roll_cpu = cpu_model.predict(torch.from_numpy(x_test), RNO_ROLLOUT_STEPS)
+    roll_err = [rel_l2_t(roll_card[:, s], roll_cpu[:, s]) for s in range(RNO_ROLLOUT_STEPS)]
+    log(f"burgers: RNO step of batch {cfg.batch_size}, card vs CPU: loss rel {loss_err:.2e} "
+        f"(tol {STEP_LOSS_TOL:.0e}), gradients max {grad_err[worst]:.2e} ({worst}, tol "
+        f"{STEP_GRAD_TOL:.0e}) over {len(grad_err)} parameters; {RNO_ROLLOUT_STEPS}-step "
+        f"rollout of {len(x_test)} windows rel_l2 by step {[f'{e:.2e}' for e in roll_err]} "
+        f"(tol {SERVE_TOL:.0e})")
+    if not loss_err <= STEP_LOSS_TOL or not grad_err[worst] <= STEP_GRAD_TOL:
+        raise AssertionError(f"burgers: RNO card and CPU steps differ: loss {loss_err}, "
+                             f"gradients {grad_err}")
+    if not all(e <= SERVE_TOL for e in roll_err) or roll_card.shape != roll_cpu.shape:
+        raise AssertionError(f"burgers: RNO rollouts differ between card and CPU: {roll_err}")
+
+    # the eager loop step of batch 8, timed and profiled, from the trained weights
+    xb, yb = xb.cuda(), yb.cuda()
+    step = loop_step(model, lambda m: l2(m(xb), yb))
+    step_ms = steps_ms(step, RNO_TIMED_STEPS)
+    reset_launches()
+    profile = profile_window(f"{RNO_PROFILE_STEPS} RNO loop steps of batch {cfg.batch_size}",
+                             lambda: [step() for _ in range(RNO_PROFILE_STEPS)])
+    per_step = {k: v / RNO_PROFILE_STEPS for k, v in read_launches().items()}
+    log(f"burgers: RNO loop step {step_ms:.3f} ms at batch {cfg.batch_size}; K1-K3 launches a "
+        f"step {per_step}")
+    return {"result": result, "run_s": run["run_s"], "step_ms": step_ms,
+            "launches": run["launches"], "launches_by_dtype": run["launches_by_dtype"],
+            "peak_mib": run["peak_mib"], "profile": profile,
+            "step_loss_rel_err": loss_err, "step_grad_rel_l2_max": grad_err[worst],
+            "rollout_rel_l2": roll_err}
+
+
+def extended_scale(fd, u, orders) -> float:
+    """The largest derivative of ``fd``'s continued field on its whole domain
+    over ``orders`` (on the CPU): where its f32 FFT rounds."""
+    from neuraloperator_tpu_torch.losses import FourierDiff
+
+    n_add = fd.FC.n_additional_pts
+    length = [lo * (n + n_add) / n for lo, n in zip(fd.L, u.shape[-fd.dim:])]
+    ext = fd.FC.extend(u, dim=fd.dim)
+    full = FourierDiff(fd.dim, L=length)
+    return max(float(full.derivative(ext, o).abs().max()) for o in orders)
+
+
+def burgers_losses() -> dict:
+    """(21d) BurgersEqnLoss (value and gradient) and FourierDiff without and
+    with continuation, card against CPU in f32, on a smooth (t, x) field."""
+    from neuraloperator_tpu_torch.losses import BurgersEqnLoss, FourierDiff
+
+    gen = torch.Generator().manual_seed(SEED + 60)
+    t = torch.linspace(0, 1, 16)[:, None]
+    xs = (2 * math.pi / 16) * torch.arange(16)[None, :]
+    amp = torch.randn(4, 1, 3, generator=gen)
+    u = sum(amp[:, :, k, None, None] * torch.sin((k + 1) * xs - t * (k + 1)) for k in range(3))
+    u = (u + 0.5 * t).float()  # not periodic in time
+    eqn = BurgersEqnLoss(visc=0.05, domain_length=[1.0, 2 * math.pi])
+    errs = {}
+    card = u.clone().cuda().requires_grad_()
+    host = u.clone().requires_grad_()
+    loss_card, loss_host = eqn(card), eqn(host)
+    loss_card.backward()
+    loss_host.backward()
+    errs["eqn_loss"] = abs(float(loss_card) - float(loss_host)) / abs(float(loss_host))
+    errs["eqn_grad"] = rel_l2_t(card.grad, host.grad)
+    units = [(1, 0), (0, 1), (2, 0), (0, 2)]
+    for use_fc in (False, "legendre", "gram"):
+        fd = FourierDiff(2, L=(1.0, 2 * math.pi), use_fc=use_fc)
+        for name, run, orders in (("dx", lambda f, a: f.dx(a), units[:1]),
+                                  ("dy2", lambda f, a: f.dy(a, 2), units[3:]),
+                                  ("laplacian", lambda f, a: f.laplacian(a), units[2:])):
+            want = run(fd, u)
+            got = run(fd, u.cuda()).cpu()
+            scale = float(want.abs().max()) if not use_fc else extended_scale(fd, u, orders)
+            errs[f"{use_fc or 'periodic'}_{name}"] = float((got - want).abs().max()) / scale
+    log(f"burgers: BurgersEqnLoss and FourierDiff, card vs CPU: {errs} (tol "
+        f"{BURGERS_LOSS_TOL:.0e}; with continuation {BURGERS_FC_TOL:.0e} of the largest "
+        f"derivative on the continued domain)")
+    if not all(e <= (BURGERS_FC_TOL if k.startswith(("legendre", "gram")) else BURGERS_LOSS_TOL)
+               for k, e in errs.items()):
+        raise AssertionError(f"burgers: losses differ between card and CPU: {errs}")
+    return errs
+
+
+def burgers() -> dict:
+    """(21) the three Burgers scripts, the RNO checks and the losses; the
+    path's launches are the three scripts'."""
+    t0 = time.perf_counter()
+    with burgers_files():
+        runs = {"train_burgers": burgers_fno1d(), "train_burgers_pino": burgers_pino()}
+    runs["train_burgers_rno"] = burgers_rno()
+    launches, by_dtype = sum_launches(runs.values())
+    losses = burgers_losses()
+    phase_s = time.perf_counter() - t0
+    log(f"burgers: phase in {phase_s:.1f} s; launches {launches}")
+    return {"launches": launches, "launches_by_dtype": by_dtype, "losses": losses,
+            "phase_s": phase_s, **runs}
+
+
 def kernel_line(variants, paths) -> list:
     """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
     with its launches summed over the paths, by path, by dtype, and by path
@@ -3637,6 +3968,12 @@ def main() -> None:
                                               ("multivar", MULTIVAR_BATCH, MULTIVAR_CHANNELS,
                                                MULTIVAR_MODES))
                  for name in kernel_specs()]
+    # the Burgers scripts' contractions: 24 x 24 channels over 5 modes (the
+    # FNO-1D at batch 16, the RNO gates at 8) and over 40 (the PINO FNO at 8)
+    variants += [dict(name=name, recipe=recipe,
+                      **check_kernel(name, batch, torch.float32,
+                                     channels=(BURGERS_CHANNELS, BURGERS_CHANNELS), modes=m))
+                 for recipe, batch, m in BURGERS_SHAPES for name in kernel_specs()]
     k3 = {v["dtype"]: v["ms"] for v in variants if v["name"] == "mode_contraction_dw"
           and v["batch"] == TRAIN_BATCH and v["shape"]["M"] == MODES}
     k1 = next(v["ms"] for v in variants if v["name"] == "mode_contraction"
@@ -3673,6 +4010,7 @@ def main() -> None:
     families_run["generate_s"] = darcy_files_s
     sfno_run = sfno()
     mhd_multivar_run = mhd_multivar()
+    burgers_run = burgers()
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
                                      "recipe": recipe_run, "mixed": mixed_run,
@@ -3681,7 +4019,8 @@ def main() -> None:
                                      "remat_scan": remat_scan_run, "tfno": tfno_run,
                                      "darcy": darcy_run, "layer_options": layer_options_run,
                                      "families": families_run, "uqno": uqno_run,
-                                     "sfno": sfno_run, "mhd_multivar": mhd_multivar_run})
+                                     "sfno": sfno_run, "mhd_multivar": mhd_multivar_run,
+                                     "burgers": burgers_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
@@ -3720,7 +4059,11 @@ def main() -> None:
         f"coverage {uqno_run['pointwise']:.4f} / {uqno_run['function']:.3f} in "
         f"{uqno_run['run_s']:.1f} s; sfno {sfno_run['metrics']} in {sfno_run['run_s']:.1f} s, "
         f"loop step {sfno_run['step_ms']:.3f} ms; mhd {mhd_multivar_run['mhd']['metrics']}, "
-        f"multivar in {mhd_multivar_run['multivar']['run_s']:.1f} s")
+        f"multivar in {mhd_multivar_run['multivar']['run_s']:.1f} s; burgers "
+        f"{burgers_run['train_burgers']['metrics']}, pino test l2 "
+        f"{burgers_run['train_burgers_pino']['result']['test_l2']:.6f}, rno test l2 "
+        f"{burgers_run['train_burgers_rno']['result']['test_l2']:.6f}, loop step ms "
+        f"{ {s: round(burgers_run[s]['step_ms'], 3) for s in BURGERS_JAX} }")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

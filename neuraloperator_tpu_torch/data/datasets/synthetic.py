@@ -1,7 +1,10 @@
-"""Host-side synthetic PDE data (port of ``gaussian_random_field``,
-``solve_darcy`` and ``generate_darcy_files`` of
-``neuraloperator_tpu/data/datasets/synthetic.py``): unchanged numpy and
-scipy, so one seed writes the same arrays to the bit in both packages."""
+"""Host-side synthetic PDE data (port of
+``neuraloperator_tpu/data/datasets/synthetic.py``): the Darcy generator
+(``gaussian_random_field``, ``solve_darcy``, ``generate_darcy_files``) and
+the Burgers ones (``solve_burgers_1d``, ``generate_burgers_files``,
+``solve_burgers_trajectory``, ``generate_burgers_spacetime_files``),
+unchanged numpy and scipy, so one seed writes the same arrays to the bit in
+both packages."""
 
 from pathlib import Path
 
@@ -95,4 +98,116 @@ def generate_darcy_files(
         )
 
 
-__all__ = ["gaussian_random_field", "generate_darcy_files", "solve_darcy"]
+def solve_burgers_1d(
+    u0: np.ndarray, visc: float = 0.01, T: float = 1.0, steps: int = 200
+) -> np.ndarray:
+    """Pseudo-spectral 1-D viscous Burgers solver (RK4, periodic)."""
+    n = u0.shape[-1]
+    k = 2 * np.pi * np.fft.fftfreq(n, d=1.0 / n)
+    dt = T / steps
+
+    def rhs(u):
+        uh = np.fft.fft(u)
+        ux = np.real(np.fft.ifft(1j * k * uh))
+        uxx = np.real(np.fft.ifft(-(k ** 2) * uh))
+        return -u * ux + visc * uxx
+
+    u = u0.copy()
+    for _ in range(steps):
+        k1 = rhs(u)
+        k2 = rhs(u + 0.5 * dt * k1)
+        k3 = rhs(u + 0.5 * dt * k2)
+        k4 = rhs(u + dt * k3)
+        u = u + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+    return u
+
+
+def generate_burgers_files(root, n_train=100, n_test=50, res=16, seed=0):
+    """Write ``burgers_{train,test}_{res}.pt`` (dicts of float32 ``x``, the
+    initial condition, and ``y``, the solution at T=1, visc 0.01).
+
+    The draws are the JAX package's, from one ``np.random.default_rng(seed)``
+    in its order. Its solver does not resolve the shock of some draws on a
+    coarse grid and returns non-finite values there (11 of the first 150
+    at res 16, whatever the time step); each such pair is replaced, after
+    both splits are drawn, by the next draw of the same generator whose
+    solution is finite. Every pair the JAX package solves to a finite value
+    is written at its place, equal to the bit.
+    """
+    import torch
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    grid = np.linspace(0, 2 * np.pi, res, endpoint=False)
+
+    def draw():
+        coef = rng.standard_normal(5) / np.arange(1, 6)
+        u0 = sum(c * np.sin((i + 1) * grid) for i, c in enumerate(coef)).astype(np.float32)
+        with np.errstate(over="ignore", invalid="ignore"):
+            return u0, solve_burgers_1d(u0).astype(np.float32)
+
+    splits = {}
+    for split, n_samples in (("train", n_train), ("test", n_test)):
+        xs = np.empty((n_samples, res), dtype=np.float32)
+        ys = np.empty((n_samples, res), dtype=np.float32)
+        for s in range(n_samples):
+            xs[s], ys[s] = draw()
+        splits[split] = (xs, ys)
+    for xs, ys in splits.values():
+        for s in np.flatnonzero(~np.isfinite(ys).all(axis=1)):
+            xs[s], ys[s] = draw()
+            while not np.isfinite(ys[s]).all():
+                xs[s], ys[s] = draw()
+    for split, (x, y) in splits.items():
+        torch.save(
+            {"x": torch.tensor(x), "y": torch.tensor(y)},
+            (root / f"burgers_{split}_{res}.pt").as_posix(),
+        )
+
+
+def solve_burgers_trajectory(u0, visc=0.05, T=1.0, nt=16, steps_per_frame=100):
+    """Record the full (nt, nx) Burgers trajectory including t=0."""
+    frames = [u0.copy()]
+    u = u0.copy()
+    dt_frame = T / (nt - 1)
+    for _ in range(nt - 1):
+        u = solve_burgers_1d(u, visc=visc, T=dt_frame, steps=steps_per_frame)
+        frames.append(u.copy())
+    return np.stack(frames)
+
+
+def generate_burgers_spacetime_files(root, n_train=64, n_test=16, res=16,
+                                     nt=16, visc=0.05, seed=0):
+    """Write burgers_pino_{split}_{res}.pt files: u0 field -> (nt, nx)
+    space-time solution (for physics-informed training)."""
+    import torch
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    grid = np.linspace(0, 2 * np.pi, res, endpoint=False)
+
+    def make(n_samples):
+        xs = np.empty((n_samples, nt, res), dtype=np.float32)
+        ys = np.empty((n_samples, nt, res), dtype=np.float32)
+        for s in range(n_samples):
+            coef = rng.standard_normal(4) / np.arange(1, 5)
+            u0 = sum(c * np.sin((i + 1) * grid) for i, c in enumerate(coef))
+            traj = solve_burgers_trajectory(
+                u0.astype(np.float64), visc=visc, nt=nt
+            )
+            xs[s] = np.broadcast_to(u0, (nt, res)).astype(np.float32)
+            ys[s] = traj.astype(np.float32)
+        return xs, ys
+
+    for split, n_samples in (("train", n_train), ("test", n_test)):
+        x, y = make(n_samples)
+        torch.save(
+            {"x": torch.tensor(x), "y": torch.tensor(y)},
+            (root / f"burgers_pino_{split}_{res}.pt").as_posix(),
+        )
+
+
+__all__ = ["gaussian_random_field", "generate_burgers_files", "generate_burgers_spacetime_files",
+           "generate_darcy_files", "solve_burgers_1d", "solve_burgers_trajectory", "solve_darcy"]

@@ -5,6 +5,8 @@ semantics: spatial dims are quadrature-weighted (absolute norms) or cancel
 (relative norms), and ``reduction`` ("sum" or "mean") applies over the
 batch and channel dims. ``H1Loss`` takes a precomputed ``ynorm_sq`` (the
 relative denominator) and then runs one stencil pass on the difference.
+``HdivLoss`` (values plus divergence), ``MSELoss`` and
+``PointwiseQuantileLoss`` complete the set.
 """
 
 import math
@@ -12,7 +14,6 @@ from typing import List
 
 import torch
 
-from .._common import not_ported
 from .differentiation import FiniteDiff
 
 
@@ -162,11 +163,84 @@ class H1Loss:
         return self.rel(y_pred, y, quadrature=quadrature, ynorm_sq=ynorm_sq)
 
 
-def _unported(name: str):
-    def __init__(self, *args, **kwargs):
-        raise not_ported(name, "the rest of losses, training and data")
+class HdivLoss:
+    """Relative or absolute H(div) norm between vector fields with their
+    components on the channel dim: the l2 of the values (over components
+    and points) plus the l2 of the divergence (``FiniteDiff``, periodic or
+    one-sided per axis)."""
 
-    return type(name, (), {"__init__": __init__, "__doc__": f"{name}: not ported yet."})
+    def __init__(self, d=2, measure=1.0, reduction="sum", eps=1e-8, periodic_in_x=True,
+                 periodic_in_y=True, periodic_in_z=True):
+        if not 0 < d < 4:
+            raise ValueError(f"d must be 1, 2 or 3, got {d}")
+        if reduction not in ("sum", "mean"):
+            raise ValueError(f"reduction must be 'sum' or 'mean', got {reduction!r}")
+        self.d = d
+        self.eps = eps
+        self.reduction = reduction
+        self.measure = [measure] * d if isinstance(measure, (int, float)) else list(measure)
+        self.periodic = (periodic_in_x, periodic_in_y, periodic_in_z)
+
+    @property
+    def name(self):
+        return f"Hdiv_{self.d}DLoss"
+
+    def uniform_quadrature(self, x) -> List[float]:
+        return [self.measure[-j] / x.shape[-j] for j in range(self.d, 0, -1)][::-1]
+
+    def reduce_all(self, x):
+        return torch.sum(x) if self.reduction == "sum" else torch.mean(x)
+
+    def _terms(self, x, y, quadrature):
+        """(values, divergences) of x and y, each flattened over space."""
+        fd = FiniteDiff(dim=self.d, h=quadrature[0] if self.d == 1 else quadrature,
+                        periodic_in_x=self.periodic[0], periodic_in_y=self.periodic[1],
+                        periodic_in_z=self.periodic[2])
+        return [_flatten_spatial(t, self.d)
+                for t in (x, y, fd.divergence(x), fd.divergence(y))]
+
+    def rel(self, x, y, quadrature=None, take_root=True):
+        quadrature = _quadrature(self, x, quadrature)
+        xf, yf, dx, dy = self._terms(x, y, quadrature)
+        diff = torch.sum((xf - yf) ** 2, dim=(-1, -2)) + torch.sum((dx - dy) ** 2, dim=-1)
+        ynorm = torch.sum(yf ** 2, dim=(-1, -2)) + torch.sum(dy ** 2, dim=-1)
+        if take_root:
+            diff = (diff ** 0.5) / (ynorm ** 0.5 + self.eps)
+        else:
+            diff = diff / (ynorm + self.eps)
+        return torch.squeeze(self.reduce_all(diff))
+
+    def abs(self, x, y, quadrature=None, take_root=True):
+        quadrature = _quadrature(self, x, quadrature)
+        xf, yf, dx, dy = self._terms(x, y, quadrature)
+        diff = math.prod(quadrature) * (torch.sum((xf - yf) ** 2, dim=(-1, -2))
+                                        + torch.sum((dx - dy) ** 2, dim=-1))
+        if take_root:
+            diff = diff ** 0.5
+        return torch.squeeze(self.reduce_all(diff))
+
+    def __call__(self, y_pred, y, quadrature=None, **kwargs):
+        return self.rel(y_pred, y, quadrature=quadrature)
+
+
+class MSELoss:
+    """Mean squared error: over everything ("mean"), or each sample's mean
+    summed over the batch ("sum")."""
+
+    def __init__(self, reduction="mean"):
+        if reduction not in ("sum", "mean"):
+            raise ValueError(f"reduction must be 'sum' or 'mean', got {reduction!r}")
+        self.reduction = reduction
+
+    @property
+    def name(self):
+        return "MSELoss"
+
+    def __call__(self, y_pred, y, **kwargs):
+        se = (y_pred - y) ** 2
+        if self.reduction == "mean":
+            return torch.mean(se)
+        return torch.sum(torch.mean(se.reshape(se.shape[0], -1), dim=-1))
 
 
 class PointwiseQuantileLoss:
@@ -194,6 +268,3 @@ class PointwiseQuantileLoss:
             return torch.squeeze(torch.sum(per_sample))
         return torch.squeeze(torch.mean(per_sample))
 
-
-HdivLoss = _unported("HdivLoss")
-MSELoss = _unported("MSELoss")

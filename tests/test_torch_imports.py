@@ -97,6 +97,15 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/scripts/train_sfno_swe.py",
         "neuraloperator_tpu_torch/scripts/train_mhd64.py",
         "neuraloperator_tpu_torch/scripts/train_codano_multivar.py",
+        "neuraloperator_tpu_torch/data/datasets/burgers.py",
+        "neuraloperator_tpu_torch/layers/fourier_continuation.py",
+        "neuraloperator_tpu_torch/layers/rno_block.py",
+        "neuraloperator_tpu_torch/models/rno.py",
+        "neuraloperator_tpu_torch/losses/equation_losses.py",
+        "neuraloperator_tpu_torch/losses/meta_losses.py",
+        "neuraloperator_tpu_torch/scripts/train_burgers.py",
+        "neuraloperator_tpu_torch/scripts/train_burgers_pino.py",
+        "neuraloperator_tpu_torch/scripts/train_burgers_rno.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -176,6 +185,9 @@ def _new_entry_points():
         eval_ns_superres,
         generate_ns_data,
         serve_model,
+        train_burgers,
+        train_burgers_pino,
+        train_burgers_rno,
         train_codano_multivar,
         train_darcy,
         train_family_quality,
@@ -213,6 +225,10 @@ def _new_entry_points():
         "train_mhd64.main": lambda: train_mhd64.main(["--opt.n_epochs", "1"]),
         "train_codano_multivar.main": lambda: train_codano_multivar.main(["--no_results"]),
         "SFNO": lambda: train_sfno_swe.build_model(train_sfno_swe.SWEConfig()),
+        "train_burgers.main": lambda: train_burgers.main(["--opt.n_epochs", "1"]),
+        "train_burgers_pino.main": lambda: train_burgers_pino.main(["--n_epochs", "1"]),
+        "train_burgers_rno.main": lambda: train_burgers_rno.main(["--n_epochs", "1"]),
+        "RNO": lambda: train_burgers_rno.build_model(),
     }
 
 
@@ -225,7 +241,9 @@ def _new_entry_points():
                                   "train_darcy.main", "train_family_quality.main",
                                   "train_uqno_darcy.main", "build_model", "CODANO", "UNO",
                                   "train_sfno_swe.main", "train_mhd64.main",
-                                  "train_codano_multivar.main", "SFNO"])
+                                  "train_codano_multivar.main", "SFNO",
+                                  "train_burgers.main", "train_burgers_pino.main",
+                                  "train_burgers_rno.main", "RNO"])
 def test_checkpoint_solver_and_eval_entry_points_refuse_the_cpu_fallback(no_card, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _new_entry_points()[name]()

@@ -123,8 +123,10 @@ def test_names_and_unported_losses():
     with pytest.raises(ValueError):
         LpLoss(reduction="max")
     assert tl.PointwiseQuantileLoss(0.1).name == jl.PointwiseQuantileLoss(0.1).name
-    for name in ("HdivLoss", "MSELoss"):
+    assert tl.HdivLoss(d=2).name == jl.HdivLoss(d=2).name
+    assert tl.MSELoss().name == jl.MSELoss().name
+    from neuraloperator_tpu_torch import losses as port_losses
+
+    for name in ("PoissonInteriorLoss", "PoissonBoundaryLoss", "PoissonEqnLoss"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(tl, name)()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FiniteDiff(2).laplacian(torch.zeros(2, 4, 4))
+            getattr(port_losses, name)()
