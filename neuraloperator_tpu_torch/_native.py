@@ -1,10 +1,12 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's native libraries.
 
 Each ``csrc/<name>.cu`` holds a plain ``extern "C"`` interface and includes
 no PyTorch header. It is compiled with ``nvcc`` for Hopper (``sm_90a``)
 into ``_build/lib<name>-<hash>.so`` at first use and loaded with
 :mod:`ctypes`; the hash covers the source and the flags, so an edited
-source is rebuilt. A failed build raises: there is no fallback.
+source is rebuilt. Each ``csrc/<name>.cpp`` is host code (the neighbour
+search), built the same way by ``g++`` with OpenMP. A failed build raises:
+there is no fallback.
 """
 
 import ctypes
@@ -28,6 +30,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
 
 
 @dataclass(frozen=True)
@@ -58,25 +61,34 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build_library(name: str) -> Build:
-    """Compile ``csrc/<name>.cu`` unless this exact source is built."""
+def find_gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ was not found on PATH; the host libraries cannot be built")
+    return gxx
+
+
+def _build(name: str, src: Path, find_compiler, flags) -> Build:
+    """Compile ``src`` with the compiler ``find_compiler()`` names and
+    ``flags`` unless this exact source is built; the build is kept under
+    ``name``."""
     with _lock:
         if name in _builds:
             return _builds[name]
-        src = CSRC_DIR / f"{name}.cu"
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            src.read_bytes() + " ".join(flags).encode()
         ).hexdigest()[:16]
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         if out.exists():
             build = Build(out, 0.0, "")
         else:
+            compiler = find_compiler()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # build under a temporary name and rename, so that a process
             # that dies mid-build leaves no half-written library behind
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+            cmd = [compiler, *flags, "-o", tmp, str(src)]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True)
             seconds = time.perf_counter() - t0
@@ -84,7 +96,7 @@ def build_library(name: str) -> Build:
             if res.returncode != 0:
                 os.unlink(tmp)
                 raise RuntimeError(
-                    f"nvcc failed ({res.returncode}) building {src}:\n"
+                    f"{Path(compiler).name} failed ({res.returncode}) building {src}:\n"
                     f"{' '.join(cmd)}\n{log}"
                 )
             os.replace(tmp, out)
@@ -93,6 +105,23 @@ def build_library(name: str) -> Build:
         return build
 
 
+def build_library(name: str) -> Build:
+    """Compile ``csrc/<name>.cu`` with nvcc unless this exact source is built."""
+    src = CSRC_DIR / f"{name}.cu"
+    return _build(name, src, find_nvcc, NVCC_FLAGS)
+
+
+def build_host_library(name: str) -> Build:
+    """Compile ``csrc/<name>.cpp`` with g++ unless this exact source is built."""
+    src = CSRC_DIR / f"{name}.cpp"
+    return _build(name, src, find_gxx, GXX_FLAGS)
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Load the library of ``csrc/<name>.cu``, building it on first use."""
     return ctypes.CDLL(str(build_library(name).path))
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Load the library of ``csrc/<name>.cpp``, building it on first use."""
+    return ctypes.CDLL(str(build_host_library(name).path))

@@ -9,7 +9,7 @@ exactly as the JAX loader does, so one seed visits the samples in the same
 order in both packages.
 """
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -31,6 +31,21 @@ class TensorDataset:
 
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
         return {k: v[i] for k, v in self.arrays.items()}
+
+
+class DictDataset:
+    """A dataset over a list of dict samples; ``constant`` entries are added
+    to every sample."""
+
+    def __init__(self, data_list: List[dict], constant: Optional[dict] = None):
+        self.data_list = data_list
+        self.constant = constant or {}
+
+    def __len__(self) -> int:
+        return len(self.data_list)
+
+    def __getitem__(self, i: int) -> dict:
+        return {**self.data_list[i], **self.constant}
 
 
 class DataLoader:

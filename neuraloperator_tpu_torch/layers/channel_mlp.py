@@ -1,11 +1,14 @@
-"""Pointwise channel MLP (port of ``neuraloperator_tpu/layers/channel_mlp.py``)."""
+"""Pointwise channel MLPs (port of ``neuraloperator_tpu/layers/channel_mlp.py``):
+``ChannelMLP``, channels first, and ``LinearChannelMLP``, channels last (the
+kernel network of the GNO layers)."""
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
 from . import _init
+from .normalization_layers import Dense
 
 
 # sqrt(1/2) rounded to bf16, as jax.nn.gelu rounds it for bf16 inputs
@@ -90,3 +93,43 @@ class ChannelMLP(nn.Module):
             if self.dropout > 0.0:
                 h = dropout(h, self.dropout, deterministic, generator)
         return h.reshape(b, self.out_channels, *spatial)
+
+
+class LinearChannelMLP(nn.Module):
+    """Channels-last MLP over point features: (..., layers[0]) -> (..., layers[-1]).
+
+    flax ``nn.Dense`` layers named ``fc{i}`` (``kernel`` (in, out), lecun
+    normal; ``bias`` zeros), ``non_linearity`` between them and none after
+    the last, as in the JAX module. The products are ``torch.matmul`` at
+    ``training.setup``'s matmul precision, as JAX's ``nn.Dense`` follows its
+    default precision. ``dropout`` behaves as :class:`ChannelMLP`'s.
+    """
+
+    def __init__(
+        self,
+        layers: Sequence[int],
+        non_linearity: Callable = gelu,
+        dropout: float = 0.0,
+        *,
+        device="cuda",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if len(layers) < 2:
+            raise ValueError("LinearChannelMLP needs at least two layer sizes")
+        self.n_layers = len(layers) - 1
+        self.non_linearity = non_linearity
+        self.dropout = dropout
+        for i in range(self.n_layers):
+            setattr(self, f"fc{i}", Dense(layers[i], layers[i + 1], device=device,
+                                          generator=generator))
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"fc{i}")(x)
+            if i < self.n_layers - 1:
+                x = self.non_linearity(x)
+            if self.dropout > 0.0:
+                x = dropout(x, self.dropout, deterministic, generator)
+        return x

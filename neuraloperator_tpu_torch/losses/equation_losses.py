@@ -1,12 +1,14 @@
 """Physics losses (port of ``neuraloperator_tpu/losses/equation_losses.py``).
 
 ``BurgersEqnLoss``: the finite-difference residual of 1-D viscous Burgers
-on a (time, space) grid; ``ICLoss``: the initial condition's error. The
-Poisson losses (JAX's forward-mode derivatives of a query function) come
-with the GNO family and raise here.
+on a (time, space) grid; ``ICLoss``: the initial condition's error; the
+nonlinear Poisson losses of the GNO family: ``PoissonInteriorLoss`` (the
+residual at interior query points, through derivatives of the model with
+respect to its queries), ``PoissonBoundaryLoss`` and ``PoissonEqnLoss``.
 """
 
-from .._common import not_ported
+import torch
+
 from .differentiation import FiniteDiff
 
 
@@ -56,13 +58,64 @@ class ICLoss:
         return self.loss(y_pred[:, :, 0], y[:, :, 0])
 
 
-def _unported(name: str):
-    def __init__(self, *args, **kwargs):
-        raise not_ported(name, "the other families")
+class PoissonInteriorLoss:
+    """Interior residual of the nonlinear Poisson equation
+    div((1 + 0.1 u²) grad u) = f, expanded as Δu + 0.1 u² Δu + 0.2 u |grad u|².
 
-    return type(name, (), {"__init__": __init__, "__doc__": f"{name}: not ported yet."})
+    ``u_fn`` maps query coordinates (n, 2) to u (n,) for one sample (a
+    closure over the model and its other inputs), as in the JAX package.
+    JAX differentiates it point by point (``jax.grad`` and ``jacfwd`` of
+    ``u_fn(q[None])``, vmapped); the port evaluates ``u_fn`` once on the
+    whole batch of queries and differentiates the sum of its outputs with
+    ``torch.autograd.grad(..., create_graph=True)``: the gradient, then each
+    second derivative on the diagonal. The two agree because every output
+    of the GNO models depends on its own query alone (each query's
+    neighbours and embedding are its own), so the gradient of the sum is
+    each point's gradient. The graph is kept, so the loss trains the model.
+    """
+
+    def __init__(self, loss=mse_loss):
+        self.loss = loss
+
+    def __call__(self, u_fn, output_queries, output_source_terms_domain, **kwargs):
+        queries = output_queries.reshape(-1, output_queries.shape[-1]).detach()
+        queries.requires_grad_(True)
+        u = u_fn(queries).reshape(-1)
+        du = torch.autograd.grad(u.sum(), queries, create_graph=True)[0]
+        laplacian = sum(
+            torch.autograd.grad(du[:, i].sum(), queries, create_graph=True)[0][:, i]
+            for i in range(2))
+        norm_grad_sq = (du ** 2).sum(dim=-1)
+        lhs = laplacian + 0.1 * (u ** 2) * laplacian + 0.2 * u * norm_grad_sq
+        return self.loss(lhs, output_source_terms_domain.reshape(lhs.shape))
 
 
-PoissonInteriorLoss = _unported("PoissonInteriorLoss")
-PoissonBoundaryLoss = _unported("PoissonBoundaryLoss")
-PoissonEqnLoss = _unported("PoissonEqnLoss")
+class PoissonBoundaryLoss:
+    """Dirichlet boundary loss over the first ``num_boundary * out_sub_level``
+    points of ``y_pred`` and ``y`` (1, n, 1)."""
+
+    def __init__(self, loss=mse_loss):
+        self.loss = loss
+
+    def __call__(self, y_pred, num_boundary, y, out_sub_level=1.0, **kwargs):
+        nb = int(num_boundary * out_sub_level)
+        boundary_pred = y_pred.squeeze(0).squeeze(-1)[:nb]
+        y_bound = y.squeeze(0).squeeze(-1)[:nb]
+        return self.loss(boundary_pred, y_bound)
+
+
+class PoissonEqnLoss:
+    """``interior_weight`` times the interior residual plus
+    ``boundary_weight`` times the boundary loss."""
+
+    def __init__(self, boundary_weight: float, interior_weight: float, base_loss=mse_loss):
+        self.boundary_weight = boundary_weight
+        self.interior_weight = interior_weight
+        self.boundary_loss = PoissonBoundaryLoss(loss=base_loss)
+        self.interior_loss = PoissonInteriorLoss(loss=base_loss)
+
+    def __call__(self, u_fn, boundary_pred, y_boundary, num_boundary, **kwargs):
+        interior = self.interior_weight * self.interior_loss(u_fn, **kwargs)
+        bc = self.boundary_weight * self.boundary_loss(boundary_pred, num_boundary=num_boundary,
+                                                       y=y_boundary)
+        return interior + bc

@@ -10,12 +10,14 @@ from .base_model import (
 )
 from .codano import CODANO, extend_variable_ids
 from .fno import FNO, TFNO
+from .fnogno import FNOGNO
+from .gino import GINO
 from .local_no import LocalNO
 from .rno import RNO
 from .sfno import SFNO
 from .uno import UNO
 from .uqno import UQNO
 
-__all__ = ["CODANO", "FNO", "LocalNO", "RNO", "SFNO", "TFNO", "UNO", "UQNO", "available_models",
+__all__ = ["CODANO", "FNO", "FNOGNO", "GINO", "LocalNO", "RNO", "SFNO", "TFNO", "UNO", "UQNO", "available_models",
            "extend_variable_ids", "from_checkpoint", "get_model", "load_checkpoint",
            "load_flagship", "model_from_metadata", "register_model", "save_arch_metadata"]

@@ -106,9 +106,24 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/scripts/train_burgers.py",
         "neuraloperator_tpu_torch/scripts/train_burgers_pino.py",
         "neuraloperator_tpu_torch/scripts/train_burgers_rno.py",
+        "neuraloperator_tpu_torch/layers/gno_weighting_functions.py",
+        "neuraloperator_tpu_torch/layers/segment_csr.py",
+        "neuraloperator_tpu_torch/layers/neighbor_search.py",
+        "neuraloperator_tpu_torch/layers/integral_transform.py",
+        "neuraloperator_tpu_torch/layers/gno_block.py",
+        "neuraloperator_tpu_torch/models/gino.py",
+        "neuraloperator_tpu_torch/models/fnogno.py",
+        "neuraloperator_tpu_torch/data/datasets/synthetic_cfd.py",
+        "neuraloperator_tpu_torch/data/datasets/mesh_datamodule.py",
+        "neuraloperator_tpu_torch/data/datasets/car_cfd_dataset.py",
+        "neuraloperator_tpu_torch/data/datasets/nonlinear_poisson.py",
+        "neuraloperator_tpu_torch/scripts/train_gino_carcfd.py",
+        "neuraloperator_tpu_torch/scripts/train_fnogno_carcfd.py",
+        "neuraloperator_tpu_torch/scripts/train_poisson.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
+    assert (PORT / "csrc/neighbor_search.cpp").exists()
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -191,8 +206,11 @@ def _new_entry_points():
         train_codano_multivar,
         train_darcy,
         train_family_quality,
+        train_fnogno_carcfd,
+        train_gino_carcfd,
         train_mhd64,
         train_navier_stokes,
+        train_poisson,
         train_sfno_swe,
         train_uqno_darcy,
     )
@@ -229,6 +247,12 @@ def _new_entry_points():
         "train_burgers_pino.main": lambda: train_burgers_pino.main(["--n_epochs", "1"]),
         "train_burgers_rno.main": lambda: train_burgers_rno.main(["--n_epochs", "1"]),
         "RNO": lambda: train_burgers_rno.build_model(),
+        "train_gino_carcfd.main": lambda: train_gino_carcfd.main(["--data_source", "synthetic"]),
+        "train_fnogno_carcfd.main": lambda: train_fnogno_carcfd.main(
+            ["--data_source", "synthetic"]),
+        "train_poisson.main": lambda: train_poisson.main(["--n_epochs", "1"]),
+        "GINO": lambda: train_gino_carcfd.build_model(train_gino_carcfd.CarConfig()),
+        "FNOGNO": lambda: train_poisson.build_model(),
     }
 
 
@@ -243,7 +267,9 @@ def _new_entry_points():
                                   "train_sfno_swe.main", "train_mhd64.main",
                                   "train_codano_multivar.main", "SFNO",
                                   "train_burgers.main", "train_burgers_pino.main",
-                                  "train_burgers_rno.main", "RNO"])
+                                  "train_burgers_rno.main", "RNO",
+                                  "train_gino_carcfd.main", "train_fnogno_carcfd.main",
+                                  "train_poisson.main", "GINO", "FNOGNO"])
 def test_checkpoint_solver_and_eval_entry_points_refuse_the_cpu_fallback(no_card, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _new_entry_points()[name]()
