@@ -15,7 +15,8 @@ Phases, each printed with its elapsed seconds as it goes:
    f32 and bf16; at the Darcy recipe's, phase 15; at UNO's widest layer,
    phase 17; K2/K3 at UQNO's batch, phase 18; K1-K3 at the FNO-3D's and
    the multi-variable FNO's, phase 20; at the Burgers scripts' three,
-   phase 21; at the GNO family's two, phase 22), and times the kernel,
+   phase 21; at the GNO family's two, phase 22; at OTNO's, phase 23), and
+   times the kernel,
    the plain version and one library
    call on the device (``_timing.device_ms``: the launches queued behind a
    device-side wait, so the CUDA events do not time the host's enqueue
@@ -249,7 +250,26 @@ Phases, each printed with its elapsed seconds as it goes:
    and its gradient card against CPU, and a profile of 10 GINO loop steps. The
    kernels phase also checks and times K1-K3 at batch 1 at 32 x 32
    channels over 320 modes and at 24 x 24 over 40;
-23. prints one ``{"kernels": [...]}`` line, then, as the last line,
+23. otno: the port's ``scripts.train_otno_carcfd --data_source synthetic``
+   at full width (2048-vertex bodies, a 24² latent sphere grid, the OT maps
+   by Sinkhorn in float64 on the card, OTNO at hidden 32 over (12, 12)
+   modes, 4 layers), cut to 16 training and 4 test bodies and 4 epochs: a
+   finite figure within twice the JAX script's own for the same flags on
+   the CPU, a falling training loss, K1-K3 launched as the steps and
+   evaluations ask; the same script on the CPU from the same init (every
+   epoch's loss and test figure); one OTNO step card against CPU; one
+   body's OT maps on the card against the numpy plain version (the plan,
+   and the index maps but for near ties), with each solver's seconds; the
+   loop step and a profile of 10 steps; then the modules no model builds,
+   card against CPU: the legacy 1-D, 2-D, 3-D and joint-factorized
+   spectral convolutions, the divergence-free projection (its output's
+   divergence, its spectrum's Hermitian symmetry), the attention kernel
+   integral with and without rotary embeddings, an FNO loaded through
+   ``models.torch_import`` from a reference-layout state dict, and a
+   ``save_checkpoint`` / ``load_checkpoint`` round trip to the bit. The
+   kernels phase also checks and times K1-K3 at batch 1 at 32 x 32
+   channels over 84 modes;
+24. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -656,6 +676,36 @@ GNO_TIMED_STEPS, GNO_PROFILE_STEPS = 10, 10
 # its cut (its k-th squared distance, or the radius squared), some 40x the
 # f32 rounding of the expanded form |q|² + |p|² - 2 q·p on the unit cube
 NEIGHBOR_TIE_MARGIN = 1e-5
+
+# the otno phase: scripts/train_otno_carcfd.py --data_source synthetic at
+# full width (2048-vertex bodies, a 24² latent sphere grid, reg 5e-3, 200
+# Sinkhorn iterations, OTNO at hidden 32 over 12 x 7 = 84 modes, 4 layers),
+# cut from 100 + 20 bodies and 30 epochs to 16 + 4 and 4. Its final figure
+# within twice the JAX script's own for the same flags on the same bodies,
+# on the CPU: test l2 0.51777 (printed to 5 decimals). The port's seeded
+# init differs between torch builds (trunc_normal_), so the card run is
+# also held to the same script on this machine's CPU from the same init:
+# every epoch's loss and each test figure within OTNO_CPU_TOL, relative.
+OTNO_CUT = {"n_train": 16, "n_test": 4, "n_epochs": 4, "eval_interval": 4}
+OTNO_CUT_FLAGS = ["--data_source", "synthetic",
+                  *[a for k, v in OTNO_CUT.items() for a in (f"--{k}", str(v))]]
+OTNO_JAX = 0.51777
+OTNO_CPU_TOL = 1e-4
+# its contraction at batch 1: 32 x 32 channels over 84 modes
+OTNO_SHAPE = ("otno", 1, 32, 12 * 7)
+OTNO_TIMED_STEPS, OTNO_PROFILE_STEPS = 10, 10
+# the card's Sinkhorn (float64, torch.logsumexp) against the numpy plain
+# version on one mesh: the plan within OT_PLAN_TOL of the largest entry; an
+# index map may differ only where the two choices' entries lie within
+# OT_TIE_MARGIN of the row's (column's) largest entry
+OT_PLAN_TOL, OT_TIE_MARGIN = 1e-10, 1e-9
+# the modules no model builds, card against CPU, relative to the largest
+# entry of the CPU's answer (cuFFT and pocketfft, and the matmuls, sum in
+# other orders); a divergence-free field's spectral divergence, relative to
+# the largest wavenumber times the largest mode (f32 rounding of the field
+# leaves ~1e-7), and the projected spectrum's departure from Hermitian
+# symmetry, relative to its largest mode
+PART2_TOL, DIVERGENCE_TOL, HERMITIAN_TOL = 1e-5, 1e-5, 1e-6
 
 # the profile tables' kinds of kernel, by words in a kernel's name (first match)
 KERNEL_KINDS = (("K1-K3", ("channel_contraction", "weight_grad")),
@@ -3977,7 +4027,7 @@ def check_gno_run(script: str, run: dict, figures: list, train: list, expected: 
         raise AssertionError(f"gno: {script}: launched {run['launches']}, expected {expected}")
 
 
-def card_against_cpu_step(model, build_cpu, loss_of, label: str) -> dict:
+def card_against_cpu_step(model, build_cpu, loss_of, label: str, phase: str = "gno") -> dict:
     """One step's loss and gradients from the same weights, card against CPU;
     ``loss_of(model, device)`` computes the loss on ``device``."""
     cpu_model = build_cpu()
@@ -3994,11 +4044,11 @@ def card_against_cpu_step(model, build_cpu, loss_of, label: str) -> dict:
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     grad_err = grad_errors(grads_gpu, grads_cpu)
     worst = max(grad_err, key=grad_err.get)
-    log(f"gno: {label}, card vs CPU: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel "
+    log(f"{phase}: {label}, card vs CPU: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel "
         f"{loss_err:.2e}, tol {STEP_LOSS_TOL:.0e}); gradients max {grad_err[worst]:.2e} "
         f"({worst}, tol {STEP_GRAD_TOL:.0e}) over {len(grad_err)} parameters")
     if not loss_err <= STEP_LOSS_TOL or not grad_err[worst] <= STEP_GRAD_TOL:
-        raise AssertionError(f"gno: {label}: card and CPU differ: loss {loss_err}, "
+        raise AssertionError(f"{phase}: {label}: card and CPU differ: loss {loss_err}, "
                              f"gradients {grad_err}")
     return {"loss_rel_err": loss_err, "grad_rel_l2_max": grad_err[worst], "grad_worst": worst}
 
@@ -4175,6 +4225,263 @@ def gno() -> dict:
             "phase_s": phase_s, **runs}
 
 
+def ot_maps_against_numpy() -> dict:
+    """(23d) one body's OT maps by the card's Sinkhorn against the numpy
+    plain version, and the seconds of each (and of the torch solver on the
+    host)."""
+    from neuraloperator_tpu_torch.data.datasets import load_synthetic_cfd
+    from neuraloperator_tpu_torch.data.datasets import ot_datamodule as otdm
+    from neuraloperator_tpu_torch.scripts import train_otno_carcfd as totno
+
+    cfg = totno.OTConfig()
+    verts = load_synthetic_cfd(1)[0]["vertices"].astype(np.float32)
+    center = verts.mean(0)
+    verts = (verts - center) / np.abs(verts - center).max()
+    seconds = {}
+    for device in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dm = otdm.OTDataModule(verts, cfg.latent_size, reg=cfg.reg, n_iters=totno.OT_ITERS,
+                               device=device)
+        torch.cuda.synchronize()
+        seconds[f"torch_{device}"] = time.perf_counter() - t0
+        if device == "cuda":
+            card = dm
+    n_lat = cfg.latent_size ** 2
+    t0 = time.perf_counter()
+    C = otdm.cost_matrix(otdm.latent_sphere(verts, cfg.latent_size), verts)
+    plan = otdm.sinkhorn_log(np.full(n_lat, 1.0 / n_lat), np.full(len(verts), 1.0 / len(verts)),
+                             C, reg=cfg.reg, n_iters=totno.OT_ITERS)
+    seconds["numpy"] = time.perf_counter() - t0
+    got = card.plan.cpu().numpy()
+    plan_err = float(np.abs(got - plan).max() / plan.max())
+    ties, worst = {}, 0.0
+    for name, axis in (("ind_enc", 1), ("ind_dec", 0)):
+        mine, want = getattr(card, name).cpu().numpy(), plan.argmax(axis=axis)
+        diff = np.nonzero(mine != want)[0]
+        for i in diff:
+            line = plan[i] if axis == 1 else plan[:, i]
+            worst = max(worst, abs(line[want[i]] - line[mine[i]]) / line.max())
+        ties[name] = int(len(diff))
+    log(f"otno: OT maps of one {len(verts)}-vertex body ({n_lat} latent cells, reg {cfg.reg}, "
+        f"{totno.OT_ITERS} iterations): card {seconds['torch_cuda']:.3f} s, host torch "
+        f"{seconds['torch_cpu']:.3f} s, host numpy {seconds['numpy']:.3f} s; plan vs numpy "
+        f"{plan_err:.2e} (tol {OT_PLAN_TOL:.0e}); maps differing {ties} (worst gap {worst:.1e}, "
+        f"margin {OT_TIE_MARGIN:.0e})")
+    if not plan_err <= OT_PLAN_TOL or worst > OT_TIE_MARGIN:
+        raise AssertionError(f"otno: the card's OT plan differs from numpy's: {plan_err}, maps "
+                             f"{ties}, worst gap {worst}")
+    return {"seconds": seconds, "plan_rel_err": plan_err, "differing_maps": ties,
+            "worst_tie_gap": worst}
+
+
+def reference_state_dict(model) -> dict:
+    """A reference neuralop (PyTorch) state dict holding a dense FNO's
+    weights (soft-gating channel-MLP skips, linear FNO skips): Conv1d
+    weights (out, in, 1) and complex spectral weights."""
+    import re
+
+    sd = {}
+    for name, value in model.state_dict().items():
+        v = value.detach().cpu()
+        key = re.sub(r"^(lifting|projection)\.([wb])(\d+)$",
+                     lambda m: f"{m[1]}.fcs.{m[3]}." + ("weight" if m[2] == "w" else "bias"),
+                     name)
+        key = re.sub(r"channel_mlp_(\d+)\.([wb])(\d+)$",
+                     lambda m: f"channel_mlp.{m[1]}.fcs.{m[3]}."
+                     + ("weight" if m[2] == "w" else "bias"), key)
+        key = re.sub(r"conv_(\d+)\.w_weight$", r"convs.\1.weight.tensor", key)
+        key = re.sub(r"conv_(\d+)\.bias$", r"convs.\1.bias", key)
+        key = re.sub(r"fno_skip_(\d+)\.weight$", r"fno_skips.\1.conv.weight", key)
+        key = re.sub(r"channel_mlp_skip_(\d+)\.weight$", r"channel_mlp_skips.\1.weight", key)
+        if key.endswith("weight.tensor"):
+            v = torch.complex(v[0], v[1])
+        elif re.search(r"(fcs\.\d+|conv)\.weight$", key):
+            v = v[..., None]
+        sd[key] = v
+    return sd
+
+
+def rel_max(card: torch.Tensor, cpu: torch.Tensor) -> float:
+    cpu = cpu.detach().double()
+    return float((card.detach().cpu().double() - cpu).abs().max() / cpu.abs().max())
+
+
+def spectral_divergence(u: torch.Tensor) -> float:
+    """Largest |kx û0 + ky û1| of (b, 2, h, w) fields (numpy, float64),
+    relative to the largest wavenumber times the largest mode."""
+    u = u.detach().cpu().double().numpy()
+    h, w = u.shape[-2:]
+    uh = np.fft.rfftn(u, axes=(-2, -1), norm="forward")
+    kx = np.fft.fftfreq(h, d=1.0 / h)[:, None]
+    ky = np.fft.rfftfreq(w, d=1.0 / w)[None, :]
+    k_max = float(np.sqrt(kx ** 2 + ky ** 2).max())
+    return float(np.abs(kx * uh[:, 0] + ky * uh[:, 1]).max() / (k_max * np.abs(uh).max()))
+
+
+def part2(otno_model) -> dict:
+    """(23f) the modules no model builds and the checkpoint odds, card
+    against CPU: the legacy convolutions, the spectral projection, the
+    attention kernel integral with and without rotary embeddings, an FNO
+    through ``torch_import``, and a ``save_checkpoint`` round trip."""
+    from neuraloperator_tpu_torch.layers import attention_kernel_integral as attn
+    from neuraloperator_tpu_torch.layers import legacy_spectral_convolution as legacy
+    from neuraloperator_tpu_torch.layers import spectral_projection as proj
+    from neuraloperator_tpu_torch.layers.embeddings import RotaryEmbedding2D
+    from neuraloperator_tpu_torch.models import (
+        FNO,
+        from_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from neuraloperator_tpu_torch.models import torch_import
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    errors = {}
+
+    def both(build, *inputs, **kwargs):
+        cpu = build("cpu")
+        card = build("meta").to_empty(device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        return card(*(t.cuda() for t in inputs), **kwargs), cpu(*inputs, **kwargs)
+
+    convs = {
+        "SpectralConv1d": (lambda d: legacy.SpectralConv1d(32, 32, 16, device=d, generator=gen),
+                           (8, 32, 256), {}),
+        "SpectralConv2d": (lambda d: legacy.SpectralConv2d(32, 32, (16, 16), device=d,
+                                                           generator=gen), (8, 32, 64, 64), {}),
+        "SpectralConv3d": (lambda d: legacy.SpectralConv3d(16, 16, (8, 8, 8), device=d,
+                                                           generator=gen),
+                           (4, 16, 32, 32, 32), {}),
+        "JointFactorizedSpectralConv": (
+            lambda d: legacy.JointFactorizedSpectralConv(32, 32, (16, 16), n_layers=4,
+                                                         device=d, generator=gen),
+            (8, 32, 64, 64), {"layer_index": 3}),
+    }
+    for name, (build, shape, kwargs) in convs.items():
+        x = torch.randn(*shape, generator=gen)
+        errors[name] = rel_max(*both(build, x, **kwargs))
+    for rotary in (False, True):
+        pe = RotaryEmbedding2D(8) if rotary else None
+        u, pos = torch.randn(2, 2048, 64, generator=gen), torch.rand(2, 2048, 2, generator=gen)
+        card, cpu = both(lambda d: attn.AttentionKernelIntegral(64, 64, 4, 16, device=d,
+                                                                generator=gen), u, pos,
+                         positional_embedding_module=pe)
+        errors[f"AttentionKernelIntegral{' rotary' if rotary else ''}"] = rel_max(card, cpu)
+    u = torch.randn(4, 2, 128, 128, generator=gen)
+    card, cpu = proj.spectral_projection_divergence_free(u.cuda()), \
+        proj.spectral_projection_divergence_free(u)
+    errors["spectral_projection_divergence_free"] = rel_max(card, cpu)
+    spec = proj.projected_spectrum(u.cuda())
+    col = spec[..., 0]  # the real field's DC column: Hermitian in kx
+    hermitian = float((col - col.flip(-1).roll(1, -1).conj()).abs().max() / spec.abs().max())
+    divergence = {"card": spectral_divergence(card), "cpu": spectral_divergence(cpu),
+                  "input": spectral_divergence(u)}
+
+    source = FNO((16, 16), 3, 1, 32, device="cpu", generator=gen)
+    card_fno = FNO((16, 16), 3, 1, 32, device="meta").to_empty(device="cuda")
+    card_fno.load_state_dict(torch_import.convert_reference_state_dict(
+        reference_state_dict(source), card_fno.state_dict()))
+    x = torch.randn(4, 3, 64, 64, generator=gen)
+    with torch.no_grad():
+        errors["FNO through torch_import"] = rel_max(card_fno(x.cuda()), source(x))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(otno_model, tmp, "otno")
+        again = load_checkpoint(from_checkpoint(tmp, "otno", device="cuda"), tmp, "otno")
+    state = otno_model.state_dict()
+    round_trip = all(torch.equal(v, state[k]) for k, v in again.state_dict().items())
+    part_s = time.perf_counter() - t0
+    log(f"otno: part 2 card vs CPU, max relative error {errors} (tol {PART2_TOL:.0e}); spectral "
+        f"divergence card {divergence['card']:.1e} CPU {divergence['cpu']:.1e} (input "
+        f"{divergence['input']:.2f}; tol {DIVERGENCE_TOL:.0e}); projected spectrum's Hermitian "
+        f"defect on the card {hermitian:.1e} (tol {HERMITIAN_TOL:.0e}); save_checkpoint -> "
+        f"load_checkpoint on the card equal to the bit: {round_trip}; {part_s:.1f} s")
+    bad = {k: v for k, v in errors.items() if not v <= PART2_TOL}
+    if (bad or not round_trip or hermitian > HERMITIAN_TOL
+            or max(divergence["card"], divergence["cpu"]) > DIVERGENCE_TOL):
+        raise AssertionError(f"otno: part 2 failed: errors {bad}, round trip {round_trip}, "
+                             f"Hermitian defect {hermitian}, divergence {divergence}")
+    return {"rel_err": errors, "divergence": divergence, "hermitian_defect": hermitian,
+            "round_trip": round_trip, "s": part_s}
+
+
+def otno() -> dict:
+    """(23) train_otno_carcfd cut to OTNO_CUT on the card (23a) and on this
+    machine's CPU from the same init (23b); one step card against CPU (23c);
+    the OT maps against numpy (23d); the loop step and a profile (23e); and
+    the modules no model builds (23f). The path's launches are the card
+    run's."""
+    from neuraloperator_tpu_torch.data.datasets import load_synthetic_cfd
+    from neuraloperator_tpu_torch.losses import LpLoss
+    from neuraloperator_tpu_torch.scripts import train_otno_carcfd as totno
+
+    t0 = time.perf_counter()
+    cfg = totno.OTConfig(**OTNO_CUT, data_source="synthetic")
+    run = entry_point_run(totno, argv=OTNO_CUT_FLAGS)
+    result, model = run["result"], run["model"]
+    steps = cfg.n_train * cfg.n_epochs
+    evals = cfg.n_test * (cfg.n_epochs // cfg.eval_interval + 1)
+    expected = {"mode_contraction": model.n_layers * (steps + evals),
+                "mode_contraction_dx": model.n_layers * steps,
+                "mode_contraction_dw": model.n_layers * steps}
+    train_l2 = result["train_l2"]
+    log(f"otno: {cfg.n_epochs} epochs of {cfg.n_train} steps in {run['run_s']:.1f} s (bodies "
+        f"made on the host and the OT maps of {result['ot_meshes']} included; the maps "
+        f"{result['ot_s']:.2f} s); final test l2 {result['test_l2']:.6f} (bound "
+        f"{2 * OTNO_JAX}); train l2 by epoch {[round(v, 5) for v in train_l2]}; launches "
+        f"{run['launches']}; peak {run['peak_mib']:.0f} MiB")
+    bad = [v for v in [result["test_l2"], *train_l2] if not math.isfinite(v)]
+    if bad or not result["test_l2"] <= 2 * OTNO_JAX or not train_l2[-1] < train_l2[0]:
+        raise AssertionError(f"otno: non-finite figures {bad}, test l2 {result['test_l2']} "
+                             f"above twice the JAX script's, or a training loss that did not "
+                             f"fall {train_l2}")
+    if run["launches"] != expected:
+        raise AssertionError(f"otno: launched {run['launches']}, expected {expected}")
+
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = totno.main([*OTNO_CUT_FLAGS, "--device", "cpu"])
+    host_s = time.perf_counter() - t1
+    figures = [result["test_l2"], *result["evals"].values(), *train_l2]
+    host_figures = [host["test_l2"], *host["evals"].values(), *host["train_l2"]]
+    host_err = max(abs(a - b) / abs(b) for a, b in zip(figures, host_figures))
+    log(f"otno: the script on the CPU from the same init in {host_s:.1f} s (its OT maps "
+        f"{host['ot_s']:.2f} s): test l2 {host['test_l2']:.6f}; card vs CPU, figures and epoch "
+        f"losses, worst rel {host_err:.3e} (bound {OTNO_CPU_TOL:.0e})")
+    if not host_err <= OTNO_CPU_TOL:
+        raise AssertionError(f"otno: card and CPU runs differ: {figures} against {host_figures}")
+
+    l2 = LpLoss(d=1)
+    x, ind, y = totno.prep(load_synthetic_cfd(1)[0], cfg, "cuda")
+
+    def loss_of(m, device):
+        return l2(m(x.to(device), ind.to(device))[None], y.to(device)[None])
+
+    step_check = card_against_cpu_step(
+        model, lambda: totno.build_model(cfg, device="meta").to_empty(device="cpu"), loss_of,
+        "OTNO step", phase="otno")
+    maps = ot_maps_against_numpy()
+    step = loop_step(model, lambda m: loss_of(m, "cuda"))
+    step_ms = steps_ms(step, OTNO_TIMED_STEPS)
+    reset_launches()
+    profile = profile_window(f"{OTNO_PROFILE_STEPS} OTNO loop steps",
+                             lambda: [step() for _ in range(OTNO_PROFILE_STEPS)])
+    per_step = {k: v / OTNO_PROFILE_STEPS for k, v in read_launches().items()}
+    log(f"otno: loop step {step_ms:.3f} ms (host clock, {OTNO_TIMED_STEPS} steps after the "
+        f"run); K1-K3 launches a step {per_step}")
+    second = part2(model)
+    phase_s = time.perf_counter() - t0
+    log(f"otno: phase in {phase_s:.1f} s; launches {run['launches']}")
+    return {"launches": run["launches"], "launches_by_dtype": run["launches_by_dtype"],
+            "result": result, "run_s": run["run_s"], "peak_mib": run["peak_mib"],
+            "cpu_run": {"test_l2": host["test_l2"], "rel_err": host_err, "s": host_s,
+                        "ot_s": host["ot_s"]},
+            "step_check": step_check, "ot_maps": maps, "step_ms": step_ms,
+            "profile": profile, "part2": second, "phase_s": phase_s}
+
+
 def kernel_line(variants, paths) -> list:
     """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
     with its launches summed over the paths, by path, by dtype, and by path
@@ -4272,10 +4579,12 @@ def main() -> None:
                                      channels=(BURGERS_CHANNELS, BURGERS_CHANNELS), modes=m))
                  for recipe, batch, m in BURGERS_SHAPES for name in kernel_specs()]
     # the GNO family's FNO layers at batch 1: 32 x 32 channels over 320 modes
-    # (GINO, FNOGNO) and 24 x 24 over 40 (the Poisson FNOGNO)
+    # (GINO, FNOGNO) and 24 x 24 over 40 (the Poisson FNOGNO); OTNO's, 32 x
+    # 32 over 12 x 7 = 84
     variants += [dict(name=name, recipe=recipe,
                       **check_kernel(name, batch, torch.float32, channels=(ch, ch), modes=m))
-                 for recipe, batch, ch, m in GNO_SHAPES for name in kernel_specs()]
+                 for recipe, batch, ch, m in (*GNO_SHAPES, OTNO_SHAPE)
+                 for name in kernel_specs()]
     k3 = {v["dtype"]: v["ms"] for v in variants if v["name"] == "mode_contraction_dw"
           and v["batch"] == TRAIN_BATCH and v["shape"]["M"] == MODES}
     k1 = next(v["ms"] for v in variants if v["name"] == "mode_contraction"
@@ -4314,6 +4623,7 @@ def main() -> None:
     mhd_multivar_run = mhd_multivar()
     burgers_run = burgers()
     gno_run = gno()
+    otno_run = otno()
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
                                      "recipe": recipe_run, "mixed": mixed_run,
@@ -4323,7 +4633,8 @@ def main() -> None:
                                      "darcy": darcy_run, "layer_options": layer_options_run,
                                      "families": families_run, "uqno": uqno_run,
                                      "sfno": sfno_run, "mhd_multivar": mhd_multivar_run,
-                                     "burgers": burgers_run, "gno": gno_run})
+                                     "burgers": burgers_run, "gno": gno_run,
+                                     "otno": otno_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     log(f"done in {time.perf_counter() - _T0:.1f} s; served latency ms {served['latency_ms']}; "
@@ -4368,7 +4679,9 @@ def main() -> None:
         f"{burgers_run['train_burgers_rno']['result']['test_l2']:.6f}, loop step ms "
         f"{ {s: round(burgers_run[s]['step_ms'], 3) for s in BURGERS_JAX} }; gno test l2 "
         f"{ {s: gno_run[s]['result']['test_l2'] for s in GNO_JAX} }, loop step ms "
-        f"{ {s: round(gno_run[s]['step_ms'], 3) for s in GNO_JAX} }")
+        f"{ {s: round(gno_run[s]['step_ms'], 3) for s in GNO_JAX} }; otno test l2 "
+        f"{otno_run['result']['test_l2']:.6f}, loop step {otno_run['step_ms']:.3f} ms, OT maps "
+        f"{otno_run['ot_maps']['seconds']['torch_cuda']:.3f} s a body on the card")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,5 +1,6 @@
 from .burgers import BurgersDataset, load_burgers_1d, load_mini_burgers_1dtime
 from .car_cfd_dataset import CarCFDDataset, load_mini_car
+from .car_ot_dataset import CarOTDataset, CFDDataProcessor, load_car_ot, load_saved_ot
 from .darcy import DarcyDataset, load_darcy_flow_small, load_darcy_pt
 from .mesh_datamodule import MeshDataModule
 from .navier_stokes import NavierStokesDataset, load_navier_stokes_pt
@@ -10,16 +11,19 @@ from .nonlinear_poisson import (
     generate_output_queries,
     load_nonlinear_poisson_pt,
 )
+from .ot_datamodule import OTDataModule, sinkhorn_log
 from .pt_dataset import PTDataset, load_pt_as_numpy
 from .spherical_swe import SphericalSWEDataset, SphericalSWESolver, load_spherical_swe
 from .synthetic_cfd import generate_cfd_sample, load_synthetic_cfd
 from .tensor_dataset import DataLoader, DictDataset, TensorDataset
 
-__all__ = ["BurgersDataset", "CarCFDDataset", "DarcyDataset", "DataLoader", "DictDataset",
-           "MeshDataModule", "NavierStokesDataset", "NonlinearPoissonDataset", "PTDataset",
-           "PoissonGINODataProcessor", "SphericalSWEDataset", "SphericalSWESolver",
-           "TensorDataset", "generate_cfd_sample", "generate_latent_queries",
-           "generate_output_queries", "load_burgers_1d", "load_darcy_flow_small",
-           "load_darcy_pt", "load_mini_burgers_1dtime", "load_mini_car",
-           "load_navier_stokes_pt", "load_nonlinear_poisson_pt", "load_pt_as_numpy",
-           "load_spherical_swe", "load_synthetic_cfd"]
+__all__ = ["BurgersDataset", "CFDDataProcessor", "CarCFDDataset", "CarOTDataset",
+           "DarcyDataset", "DataLoader", "DictDataset", "MeshDataModule",
+           "NavierStokesDataset", "NonlinearPoissonDataset", "OTDataModule",
+           "PTDataset", "PoissonGINODataProcessor", "SphericalSWEDataset",
+           "SphericalSWESolver", "TensorDataset", "generate_cfd_sample",
+           "generate_latent_queries", "generate_output_queries", "load_burgers_1d",
+           "load_car_ot", "load_darcy_flow_small", "load_darcy_pt",
+           "load_mini_burgers_1dtime", "load_mini_car", "load_navier_stokes_pt",
+           "load_nonlinear_poisson_pt", "load_pt_as_numpy", "load_saved_ot",
+           "load_spherical_swe", "load_synthetic_cfd", "sinkhorn_log"]

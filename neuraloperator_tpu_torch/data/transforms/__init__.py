@@ -1,4 +1,5 @@
-from .data_processors import DefaultDataProcessor, load_data_processor
+from .data_processors import DataProcessor, DefaultDataProcessor, load_data_processor
 from .normalizers import UnitGaussianNormalizer
 
-__all__ = ["DefaultDataProcessor", "UnitGaussianNormalizer", "load_data_processor"]
+__all__ = ["DataProcessor", "DefaultDataProcessor", "UnitGaussianNormalizer",
+           "load_data_processor"]

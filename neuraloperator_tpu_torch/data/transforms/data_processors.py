@@ -1,6 +1,6 @@
 """Data processors (port of ``neuraloperator_tpu/data/transforms/data_processors.py``).
 
-``DefaultDataProcessor`` (preprocess, postprocess, feedback, state) and
+The ``DataProcessor`` interface, ``DefaultDataProcessor`` (preprocess, postprocess, feedback, state) and
 ``load_data_processor``, which reads the ``data_processor.json`` sidecar
 saved beside a checkpoint.
 """
@@ -12,7 +12,18 @@ from typing import Optional
 from .normalizers import UnitGaussianNormalizer
 
 
-class DefaultDataProcessor:
+class DataProcessor:
+    """The interface: ``preprocess`` before the model, ``postprocess``
+    after it, each with an explicit ``train`` flag."""
+
+    def preprocess(self, sample: dict, train: bool = True) -> dict:
+        raise NotImplementedError
+
+    def postprocess(self, out, sample: dict, train: bool = True):
+        raise NotImplementedError
+
+
+class DefaultDataProcessor(DataProcessor):
     """Normalize x always; normalize y in training, denormalize predictions in eval.
 
     Serving bakes ``in_normalizer.transform`` in before the model and

@@ -9,7 +9,8 @@ resolution), scaled, soft-maxed and applied to the values with
 ``torch.einsum``, in the JAX module's order (not
 ``scaled_dot_product_attention``, which on the card may pick reduced
 precision). The norms are ``GroupNorm(groups=channels)``: an instance norm
-with a per-channel affine, as in the JAX module.
+with a per-channel affine, as in the JAX module. ``conv_module`` is any
+convolution class ``FNOBlocks`` takes (``SphericalConv`` for one).
 """
 
 from typing import Callable, Optional, Sequence
@@ -17,7 +18,6 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from .._common import not_ported
 from .channel_mlp import gelu
 from .fno_block import FNOBlocks
 from .normalization_layers import GroupNorm
@@ -68,8 +68,6 @@ class CODALayer(nn.Module):
         super().__init__()
         if norm not in (None, "instance_norm"):
             raise ValueError(f"unknown norm {norm!r}")
-        if conv_module is not SpectralConv:
-            raise not_ported(f"CODALayer conv_module={conv_module!r}", "the other families")
         self.n_dim = len(n_modes)
         self.n_heads, self.temperature = n_heads, temperature
         self.permutation_eq = permutation_eq

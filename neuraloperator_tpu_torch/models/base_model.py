@@ -7,7 +7,8 @@ checkpoint's ``model_metadata.json`` (or ``{name}_metadata.json``) holds
 stand-ins ``{"__callable__": name}`` and ``{"__class__": name}`` are
 resolved by name. A registered model records the arguments it was built
 with, and ``save_arch_metadata`` writes them in that layout, which this
-module's ``from_checkpoint`` and the JAX package's both read.
+module's ``from_checkpoint`` and the JAX package's both read;
+``save_checkpoint`` writes them beside the weights.
 ``load_flagship`` rebuilds a trained model, its data processor and its
 manifest from a training run's directory.
 """
@@ -22,9 +23,9 @@ from typing import Any, Dict, Mapping, Optional, Union
 import torch
 
 from .._common import resolve_device
-from ..convert import convert_flax_params
+from ..convert import convert_flax_params, to_flax_params
 from ..data.transforms import load_data_processor
-from ..serialization import read_msgpack
+from ..serialization import read_msgpack, write_msgpack
 from ..training.training_state import load_training_state, read_manifest
 
 _MODEL_REGISTRY: Dict[str, type] = {}
@@ -189,6 +190,18 @@ def save_arch_metadata(module: torch.nn.Module, save_folder, save_name: str) -> 
     }
     path = folder / f"{save_name}_metadata.json"
     path.write_text(json.dumps(meta, indent=2))
+    return path
+
+
+def save_checkpoint(module: torch.nn.Module, save_folder, save_name: str) -> Path:
+    """Write ``{save_name}_state_dict.msgpack`` (the flax variables
+    ``{"params": ...}`` of the module's weights, in their dtypes) and the
+    ``{save_name}_metadata.json`` sidecar: the JAX ``save_checkpoint``'s
+    layout, which ``load_checkpoint`` and the JAX package's loaders read.
+    Returns the state file's path."""
+    save_arch_metadata(module, save_folder, save_name)
+    path = Path(save_folder) / f"{save_name}_state_dict.msgpack"
+    write_msgpack(path, {"params": to_flax_params(module.state_dict())})
     return path
 
 

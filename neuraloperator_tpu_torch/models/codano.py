@@ -20,27 +20,8 @@ from ..layers.coda_layer import CODALayer
 from ..layers.padding import DomainPadding
 from ..layers.resample import resample
 from ..layers.spectral_convolution import SpectralConv
+from ..ops.fourier import irfftn_pocketfft
 from .base_model import register_model
-
-
-def irfftn_pocketfft(spec: torch.Tensor, s: Sequence[int]) -> torch.Tensor:
-    """``numpy.fft.irfftn(spec, s)`` over the last ``len(s)`` axes, for a
-    spectrum that is not Hermitian, where ``spec`` already has the sizes
-    ``s[:-1]`` and ``s[-1] // 2 + 1``: what pocketfft computes, on every
-    device. The leading axes are inverted by a complex ``ifftn``, then the
-    last by ``irfft`` with the imaginary parts of its DC and (even sizes)
-    Nyquist terms dropped, as pocketfft's real transform drops them (cuFFT's
-    multi-dimensional C2R assumes Hermitian input and would not)."""
-    n = len(s)
-    if n > 1:
-        spec = torch.fft.ifftn(spec, dim=tuple(range(-n, -1)))
-    half = s[-1] // 2 + 1
-    keep = torch.ones(half, dtype=torch.bool, device=spec.device)
-    keep[0] = False
-    if s[-1] % 2 == 0:
-        keep[half - 1] = False
-    spec = torch.complex(spec.real, torch.where(keep, spec.imag, 0.0))
-    return torch.fft.irfft(spec, n=s[-1], dim=-1)
 
 
 @register_model(name="CODANO")

@@ -8,7 +8,8 @@ layers are unrolled (``FNOBlocks``), or, with ``scan_layers``, one layer
 over stacked parameters (``ScanFNOBlocks``); ``remat`` recomputes each
 layer's activations in the backward. The constructor takes the JAX
 module's fields, so a ``model_metadata.json`` builds either. ``TFNO`` is
-the FNO with rank-0.1 Tucker weights by default.
+the FNO with rank-0.1 Tucker weights by default, made by ``partialclass``
+(a subclass with new defaults, as the JAX function makes one).
 """
 
 import inspect
@@ -220,23 +221,32 @@ class FNO(nn.Module):
         return self.projection(x)
 
 
-_TFNO_DEFAULTS = {"factorization": "tucker", "rank": 0.1}
-# the FNO's arguments with the TFNO's defaults: what the registry records
-_TFNO_SIGNATURE = inspect.signature(FNO.__init__).replace(parameters=[
-    p.replace(default=_TFNO_DEFAULTS[name]) if name in _TFNO_DEFAULTS else p
-    for name, p in inspect.signature(FNO.__init__).parameters.items()
-])
-
-
-@register_model(name="TFNO")
-class TFNO(FNO):
-    """Tucker-factorized FNO: ``factorization="tucker"`` and ``rank=0.1`` by
-    default, the FNO's arguments otherwise (the JAX ``TFNO``)."""
+def partialclass(new_name: str, cls: type, **defaults) -> type:
+    """A subclass of ``cls`` named ``new_name`` whose constructor takes
+    ``cls``'s arguments with ``defaults`` as their new defaults (the JAX
+    ``partialclass``): ``partialclass("MyFNO", FNO, factorization="tucker",
+    rank=0.05)``. Raises ``TypeError`` for an argument ``cls`` does not
+    take."""
+    signature = inspect.signature(cls.__init__)
+    for name in defaults:
+        if name == "self" or name not in signature.parameters:
+            raise TypeError(f"{cls.__name__} has no field {name!r}")
+    signature = signature.replace(parameters=[
+        p.replace(default=defaults[name]) if name in defaults else p
+        for name, p in signature.parameters.items()
+    ])
 
     def __init__(self, *args, **kwargs):
-        bound = _TFNO_SIGNATURE.bind(self, *args, **kwargs)
+        bound = signature.bind(self, *args, **kwargs)
         bound.apply_defaults()
         del bound.arguments["self"]
-        super().__init__(**bound.arguments)
+        cls.__init__(self, **bound.arguments)
 
-    __init__.__signature__ = _TFNO_SIGNATURE
+    __init__.__signature__ = signature
+    return type(new_name, (cls,), {"__init__": __init__, "__doc__": cls.__doc__})
+
+
+TFNO = register_model(name="TFNO")(
+    partialclass("TFNO", FNO, factorization="tucker", rank=0.1))
+TFNO.__doc__ = """Tucker-factorized FNO: ``factorization="tucker"`` and ``rank=0.1`` by
+default, the FNO's arguments otherwise (the JAX ``TFNO``)."""

@@ -23,6 +23,9 @@ two products. Each matmul runs, forward and backward, inside
 The matrices are built once per (n, kept, norm) in numpy (float64 maths,
 stored as float32) and cached as tensors once per device and dtype, outside
 inference mode so that serving and training can share them in one process.
+
+``irfftn_pocketfft`` inverts a spectrum that is not Hermitian as pocketfft
+(numpy, JAX on the CPU) does, on every device.
 """
 
 import contextlib
@@ -329,3 +332,23 @@ def _center_slice(start: int) -> slice:
     if not start:
         return slice(None)
     return slice(start // 2, -start // 2)
+
+
+def irfftn_pocketfft(spec: torch.Tensor, s: Sequence[int], norm: str = "backward") -> torch.Tensor:
+    """``numpy.fft.irfftn(spec, s, norm=norm)`` over the last ``len(s)`` axes, for a
+    spectrum that is not Hermitian, where ``spec`` already has the sizes
+    ``s[:-1]`` and ``s[-1] // 2 + 1``: what pocketfft computes, on every
+    device. The leading axes are inverted by a complex ``ifftn``, then the
+    last by ``irfft`` with the imaginary parts of its DC and (even sizes)
+    Nyquist terms dropped, as pocketfft's real transform drops them (cuFFT's
+    multi-dimensional C2R assumes Hermitian input and would not)."""
+    n = len(s)
+    if n > 1:
+        spec = torch.fft.ifftn(spec, dim=tuple(range(-n, -1)), norm=norm)
+    half = s[-1] // 2 + 1
+    keep = torch.ones(half, dtype=torch.bool, device=spec.device)
+    keep[0] = False
+    if s[-1] % 2 == 0:
+        keep[half - 1] = False
+    spec = torch.complex(spec.real, torch.where(keep, spec.imag, 0.0))
+    return torch.fft.irfft(spec, n=s[-1], dim=-1, norm=norm)

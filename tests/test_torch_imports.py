@@ -120,6 +120,16 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/scripts/train_gino_carcfd.py",
         "neuraloperator_tpu_torch/scripts/train_fnogno_carcfd.py",
         "neuraloperator_tpu_torch/scripts/train_poisson.py",
+        "neuraloperator_tpu_torch/data/datasets/ot_datamodule.py",
+        "neuraloperator_tpu_torch/data/datasets/car_ot_dataset.py",
+        "neuraloperator_tpu_torch/models/otno.py",
+        "neuraloperator_tpu_torch/scripts/train_otno_carcfd.py",
+        "neuraloperator_tpu_torch/layers/base_spectral_conv.py",
+        "neuraloperator_tpu_torch/layers/einsum_utils.py",
+        "neuraloperator_tpu_torch/layers/legacy_spectral_convolution.py",
+        "neuraloperator_tpu_torch/layers/spectral_projection.py",
+        "neuraloperator_tpu_torch/layers/attention_kernel_integral.py",
+        "neuraloperator_tpu_torch/models/torch_import.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -193,7 +203,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card):
 
 def _new_entry_points():
     from neuraloperator_tpu_torch.data.datasets import navier_stokes, ns_solver
-    from neuraloperator_tpu_torch.models import load_flagship
+    from neuraloperator_tpu_torch.data.datasets import OTDataModule
+    from neuraloperator_tpu_torch.layers import attention_kernel_integral as attention
+    from neuraloperator_tpu_torch.layers import legacy_spectral_convolution as legacy
+    from neuraloperator_tpu_torch.models import OTNO, load_flagship
     from neuraloperator_tpu_torch.scripts import (
         eval_ns_checkpoint,
         eval_ns_rollout,
@@ -210,6 +223,7 @@ def _new_entry_points():
         train_gino_carcfd,
         train_mhd64,
         train_navier_stokes,
+        train_otno_carcfd,
         train_poisson,
         train_sfno_swe,
         train_uqno_darcy,
@@ -253,6 +267,12 @@ def _new_entry_points():
         "train_poisson.main": lambda: train_poisson.main(["--n_epochs", "1"]),
         "GINO": lambda: train_gino_carcfd.build_model(train_gino_carcfd.CarConfig()),
         "FNOGNO": lambda: train_poisson.build_model(),
+        "train_otno_carcfd.main": lambda: train_otno_carcfd.main(["--data_source", "synthetic"]),
+        "OTNO": lambda: OTNO((4, 4)),
+        "OTDataModule": lambda: OTDataModule(np.zeros((8, 3), np.float32), latent_size=2),
+        "SpectralConv2d": lambda: legacy.SpectralConv2d(2, 2, (2, 2)),
+        "JointFactorizedSpectralConv": lambda: legacy.JointFactorizedSpectralConv(2, 2, (4, 4)),
+        "AttentionKernelIntegral": lambda: attention.AttentionKernelIntegral(4, 4, 1, 4),
     }
 
 
@@ -269,7 +289,10 @@ def _new_entry_points():
                                   "train_burgers.main", "train_burgers_pino.main",
                                   "train_burgers_rno.main", "RNO",
                                   "train_gino_carcfd.main", "train_fnogno_carcfd.main",
-                                  "train_poisson.main", "GINO", "FNOGNO"])
+                                  "train_poisson.main", "GINO", "FNOGNO",
+                                  "train_otno_carcfd.main", "OTNO", "OTDataModule",
+                                  "SpectralConv2d", "JointFactorizedSpectralConv",
+                                  "AttentionKernelIntegral"])
 def test_checkpoint_solver_and_eval_entry_points_refuse_the_cpu_fallback(no_card, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _new_entry_points()[name]()
