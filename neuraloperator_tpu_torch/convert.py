@@ -153,7 +153,7 @@ def _mu_leaf(state: Mapping[str, torch.Tensor]):
 
 
 def adamw_state_to_optax(count: int, states: Mapping[str, Mapping[str, torch.Tensor]],
-                         factored: bool) -> dict:
+                         factored: bool, clipped: bool = False) -> dict:
     """optax's state tree of the port's AdamW state.
 
     ``states`` maps each parameter name to its state (``mu`` or, for an
@@ -161,7 +161,9 @@ def adamw_state_to_optax(count: int, states: Mapping[str, Mapping[str, torch.Ten
     and ``nu_col`` for a factored leaf of two or more dims; ``ema`` under
     ``with_ema``). A factored optimizer's state holds, as optax's does, f32
     zeros of shape () where a leaf has no such statistic (``nu_row`` and
-    ``nu_col`` below two dims, ``nu_full`` from two dims up).
+    ``nu_col`` below two dims, ``nu_full`` from two dims up). ``clipped``:
+    the tree of ``optax.chain(optax.clip_by_global_norm(m), adamw)``, whose
+    clip keeps an empty state.
     """
     count_leaf = np.asarray(count, dtype=np.int32)
     zero = np.zeros((), np.float32)
@@ -174,6 +176,8 @@ def adamw_state_to_optax(count: int, states: Mapping[str, Mapping[str, torch.Ten
         first[field] = unflatten_flax(
             {n: s[key] if key in s else zero for n, s in states.items()})
     tree = {"0": first, "1": {}, "2": {"count": count_leaf}}
+    if clipped:
+        tree = {"0": {}, "1": tree}
     if any("ema" in s for s in states.values()):
         return {"inner": tree, "ema": unflatten_flax({n: s["ema"] for n, s in states.items()})}
     return tree
@@ -181,6 +185,7 @@ def adamw_state_to_optax(count: int, states: Mapping[str, Mapping[str, torch.Ten
 
 def adamw_state_from_optax(
     tree: Mapping[str, Any], states: Mapping[str, Mapping[str, torch.Tensor]], factored: bool,
+    clipped: bool = False,
 ) -> Tuple[int, Dict[str, Dict[str, torch.Tensor]]]:
     """``(count, {name: {key: tensor}})`` out of optax's state tree.
 
@@ -200,6 +205,11 @@ def adamw_state_from_optax(
         tree = tree["inner"]
     elif with_ema:
         raise ValueError(f"this optimizer keeps an EMA; the state tree holds {sorted(tree)}")
+    if clipped:
+        if set(tree) != {"0", "1"} or tree["0"]:
+            raise ValueError("this optimizer clips by the global norm; the state tree holds "
+                             f"{sorted(tree)}")
+        tree = tree["1"]
     if set(tree) != {"0", "1", "2"} or not isinstance(tree["0"], Mapping):
         raise ValueError(f"not an AdamW state tree: top-level keys {sorted(tree)}")
     first = tree["0"]

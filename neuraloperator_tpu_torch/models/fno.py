@@ -103,6 +103,10 @@ class FNO(nn.Module):
                     "use the unrolled FNOBlocks path"
                 )
         n_modes = tuple(int(m) for m in n_modes)
+        # the mode counts, read by the incremental FNO trainer as the JAX
+        # module's fields
+        self.n_modes = n_modes
+        self.max_n_modes = None if max_n_modes is None else tuple(int(m) for m in max_n_modes)
         self.n_layers = n_layers
         self.scan_layers = scan_layers
         self.remat = remat

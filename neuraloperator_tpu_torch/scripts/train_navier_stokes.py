@@ -14,8 +14,13 @@ bfloat16 --model.fno_block_precision mixed --opt.mixed_precision true``,
 and so do the recipes' optimizer options (``scripts/run_round4_post.sh:26-33``):
 ``--opt.opt_state factored8``, ``--opt.stochastic_rounding true`` and
 ``--opt.ema_decay D`` (whose run ends with an evaluation of the EMA of the
-parameters, printed as ``ema: {...}``). Multigrid patching and the mesh
-raise ``NotImplementedError`` naming their ROADMAP item.
+parameters, printed as ``ema: {...}``). ``--patching.levels L`` (with
+``--patching.padding`` and ``--patching.stitching``) trains the
+multigrid-patched FNO (MG-TFNO): the normalizers are wrapped in an
+``MGPatchingDataProcessor``, the model takes ``L + 1`` times the data
+channels, and a batch of B fields reaches the spectral layers as
+``B * 4**L`` patches. The mesh raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 Usage:
   python -m neuraloperator_tpu_torch.scripts.train_navier_stokes --opt.n_epochs 50 \\
@@ -35,7 +40,7 @@ from ..config import (
     make_config_from_cli,
 )
 from ..data.datasets import load_navier_stokes_pt
-from ..data.transforms import load_data_processor
+from ..data.transforms import MGPatchingDataProcessor, load_data_processor
 from ..losses import H1Loss, LpLoss
 from ..models import get_model
 from ..training import Trainer, build_optimizer, ema_params, setup
@@ -99,8 +104,6 @@ def main(argv=None) -> dict:
     device, argv = _split_device(argv)
     config = make_config_from_cli(NSConfig, argv)
     device = resolve_device(device)
-    if config.patching.levels > 0:
-        raise not_ported("--patching.levels > 0", "the rest of losses, training and data")
     if config.distributed.use_distributed:
         raise not_ported("--distributed.use_distributed", "distribution")
     setup(config)
@@ -123,6 +126,16 @@ def main(argv=None) -> dict:
                              "data_processor.json sidecar found")
         data_processor = pinned
         print(f"normalizers pinned from {config.normalizer_from}")
+
+    if config.patching.levels > 0:
+        # get_model multiplies data_channels by levels + 1 for the patched input
+        data_processor = MGPatchingDataProcessor(
+            levels=config.patching.levels,
+            padding_fraction=config.patching.padding,
+            stitching=config.patching.stitching,
+            in_normalizer=data_processor.in_normalizer,
+            out_normalizer=data_processor.out_normalizer,
+        )
 
     model = get_model(config.to_dict(), device=device)
     optimizer = build_optimizer(config.opt, len(train_loader))

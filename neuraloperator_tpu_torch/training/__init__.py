@@ -1,6 +1,7 @@
 from .optimizer import (
     AdamW,
     Quantized8,
+    ReduceLROnPlateau,
     StepLR,
     adamw,
     apply_updates_sr,
@@ -9,15 +10,23 @@ from .optimizer import (
     dequantize_blockwise,
     ema_params,
     quantize_blockwise,
+    reduce_on_plateau,
     step_lr,
     stochastic_round_to,
     with_ema,
 )
+from .incremental import IncrementalFNOTrainer
+from .patching import MultigridPatching2D, make_patches
+from .profiling import ThroughputMeter, flops_per_fno_step, trace
 from .setup import setup
+from .tensor_galore import TensorGaLoreProjector, tensor_galore_adamw
 from .trainer import Trainer
 from .training_state import load_training_state, save_training_state
 
-__all__ = ["AdamW", "Quantized8", "StepLR", "Trainer", "adamw", "apply_updates_sr",
-           "build_optimizer", "cosine_annealing", "dequantize_blockwise", "ema_params",
-           "load_training_state", "quantize_blockwise", "save_training_state", "setup",
-           "step_lr", "stochastic_round_to", "with_ema"]
+__all__ = ["AdamW", "IncrementalFNOTrainer", "MultigridPatching2D", "Quantized8",
+           "ReduceLROnPlateau", "StepLR", "TensorGaLoreProjector", "ThroughputMeter", "Trainer",
+           "adamw", "apply_updates_sr", "build_optimizer", "cosine_annealing",
+           "dequantize_blockwise", "ema_params", "flops_per_fno_step", "load_training_state",
+           "make_patches", "quantize_blockwise", "reduce_on_plateau", "save_training_state",
+           "setup", "step_lr", "stochastic_round_to", "tensor_galore_adamw", "trace",
+           "with_ema"]

@@ -25,7 +25,14 @@ in f32. The port keeps the JAX parameter layouts (``convert.py``), so "the
 last two axes" are the same axes in both packages. Two options of the JAX
 package ride on the same optimizer: stochastic rounding of bf16 parameters
 (``step(generator=...)``, :func:`apply_updates_sr`) and an EMA of the
-parameters (:func:`with_ema`, :func:`ema_params`).
+parameters (:func:`with_ema`, :func:`ema_params`). ``max_grad_norm`` clips
+the gradients by their global norm before everything else
+(``optax.clip_by_global_norm`` chained in front), and
+:func:`reduce_on_plateau` scales every update by a factor that falls when
+the loss given to ``step(value=...)`` stops improving
+(``optax.contrib.reduce_on_plateau`` chained behind). The per-epoch
+schedulers :class:`StepLR` and :class:`ReduceLROnPlateau` follow the
+``Trainer``'s epoch protocol instead.
 
 The step count, the learning rate and the bias corrections live in device
 tensors and are updated by device ops inside ``step``, as optax computes
@@ -33,7 +40,9 @@ them (f32 arithmetic on an int32 count): a step reads nothing back to the
 host, so a CUDA graph can capture it and every replay sees the count of its
 own step. ``state_dict`` and ``load_state_dict`` speak optax's state tree
 (``convert.adamw_state_to_optax``), so the port and the JAX package resume
-each other's ``optimizer.msgpack``.
+each other's ``optimizer.msgpack``; with the clip and the plateau scale the
+tree is that of ``reduce_on_plateau(with_ema(adamw(..., max_grad_norm)))``,
+each wrapper present only when its option is.
 """
 
 import functools
@@ -43,7 +52,6 @@ from typing import Callable, Dict, Iterable, NamedTuple, Optional, Sequence, Uni
 
 import torch
 
-from .._common import not_ported
 from ..convert import adamw_state_from_optax, adamw_state_to_optax
 
 Schedule = Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]
@@ -227,6 +235,16 @@ class AdamW(torch.optim.Optimizer):
     (``with_ema``): each step folds in the parameters it is given, before
     their update and the ``Trainer``'s ``lr_scale``, a one-step lag.
 
+    ``max_grad_norm`` scales every gradient by ``max_grad_norm / g_norm``
+    when the global l2 norm ``g_norm`` of all of them reaches it
+    (``optax.clip_by_global_norm``, ahead of every other transformation).
+    ``plateau`` (:func:`reduce_on_plateau`'s settings) multiplies each update
+    by a scale that falls by ``factor`` after ``patience`` steps whose
+    ``value`` (the loss, passed as ``step(value=...)``) did not improve on
+    the best by ``rtol`` and ``atol``; the arithmetic is optax's, on device
+    tensors. ``step(closure)`` follows torch's protocol: the closure runs
+    with gradients enabled before the update and its loss is returned.
+
     ``count`` is an int32 0-d tensor on the parameters' device, and every
     parameter's state is made when the optimizer is: a step allocates no
     state and synchronises with nothing. ``names`` (one per parameter, the
@@ -245,6 +263,8 @@ class AdamW(torch.optim.Optimizer):
         factored_second_moment: bool = False,
         cast_final_updates: bool = True,
         ema_decay: Optional[float] = None,
+        max_grad_norm: Optional[float] = None,
+        plateau: Optional[dict] = None,
         names: Optional[Sequence[str]] = None,
     ):
         params = list(params)
@@ -258,6 +278,9 @@ class AdamW(torch.optim.Optimizer):
         self.factored = factored_second_moment
         self.cast_final_updates = cast_final_updates
         self.ema_decay = ema_decay
+        self.max_grad_norm = max_grad_norm
+        self.plateau = None if plateau is None else dict(plateau)
+        self.needs_value = plateau is not None
         self.names = None if names is None else list(names)
         device = params[0].device
         # optax's shared step count; the rate and the bias corrections
@@ -267,6 +290,18 @@ class AdamW(torch.optim.Optimizer):
         self.bias_correction = torch.zeros(2, dtype=torch.float32, device=device)
         for p in params:
             self.state[p].update(self._init_state(p))
+        if plateau is not None:
+            # optax's ReduceLROnPlateauState: the scale in the parameters'
+            # lowest float dtype, the rest f32 and int32
+            lowest = min((p.dtype for p in params), key=lambda d: torch.finfo(d).bits)
+            self.plateau_state = {
+                "scale": torch.ones((), dtype=lowest, device=device),
+                "best_value": torch.full((), float("inf"), device=device),
+                "plateau_count": torch.zeros((), dtype=torch.int32, device=device),
+                "cooldown_count": torch.zeros((), dtype=torch.int32, device=device),
+                "count": torch.zeros((), dtype=torch.int32, device=device),
+                "avg_value": torch.zeros((), device=device),
+            }
 
     def _set_lr(self) -> None:
         """``self.lr`` := the rate at the current count (f32, on the device)."""
@@ -300,11 +335,45 @@ class AdamW(torch.optim.Optimizer):
             state["ema"] = p.detach().to(torch.float32, copy=True)
         return state
 
+    def _global_norm(self) -> Optional[torch.Tensor]:
+        """The gradients' global l2 norm (``optax.global_norm``), when clipping."""
+        if self.max_grad_norm is None:
+            return None
+        sq = [(p.grad * p.grad).sum().float() for group in self.param_groups
+              for p in group["params"] if p.grad is not None]
+        return torch.sqrt(torch.stack(sq).sum())
+
+    def _plateau_scale(self, value) -> torch.Tensor:
+        """``optax.contrib.reduce_on_plateau``'s update with
+        ``accumulation_size=1`` and no cooldown: the scale after ``value``."""
+        st, cfg = self.plateau_state, self.plateau
+        if value is None:
+            raise ValueError("an optimizer under reduce_on_plateau needs step(value=loss)")
+        # the running mean of one value is the value; count and mean restart
+        value = torch.as_tensor(value, device=st["avg_value"].device).float()
+        st["count"].zero_()
+        st["avg_value"].zero_()
+        improved = value < (1 - cfg["rtol"]) * st["best_value"] - cfg["atol"]
+        st["best_value"].copy_(torch.where(improved, value, st["best_value"]))
+        plateau = torch.where(improved, torch.zeros_like(st["plateau_count"]),
+                              st["plateau_count"] + 1)
+        hit = plateau == cfg["patience"]
+        st["plateau_count"].copy_(torch.where(hit, torch.zeros_like(plateau), plateau))
+        scale = st["scale"]
+        scale.copy_(torch.where(hit, scale * cfg["factor"], scale))
+        return scale
+
     @torch.no_grad()
     def step(self, closure=None, lr_scale: float = 1.0,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, value=None):
+        loss = None
         if closure is not None:
-            raise not_ported("AdamW.step(closure)", "the rest of losses, training and data")
+            with torch.enable_grad():
+                loss = closure()
+            if value is None and self.needs_value:
+                value = loss.detach()
+        g_norm = self._global_norm()
+        plateau = self._plateau_scale(value) if self.plateau is not None else None
         self._set_lr()  # the schedule sees the count before the increment
         lr = self.lr
         self.count.add_(1)
@@ -320,6 +389,10 @@ class AdamW(torch.optim.Optimizer):
             b1c, b2c = self.bias_correction[0], self.bias_correction[1]
             for p in group["params"]:
                 g = torch.zeros_like(p) if p.grad is None else p.grad
+                if g_norm is not None:
+                    # clip_by_global_norm: select(norm < m, g, g / norm * m)
+                    g = torch.where(g_norm < self.max_grad_norm, g,
+                                    g / g_norm.to(g.dtype) * self.max_grad_norm)
                 state = self.state[p]
                 u = self._adam_direction(g, state, b1, b2, b1c, b2c, group["eps"])
                 # add_decayed_weights, then scale_by_learning_rate
@@ -329,6 +402,8 @@ class AdamW(torch.optim.Optimizer):
                     # with_final_update_cast: the update takes the parameter's
                     # dtype (bf16 for bf16-stored weights) and is added in it
                     u = u.to(p.dtype)
+                if plateau is not None:
+                    u = plateau * u
                 u = (u.float() * lr_scale).to(u.dtype)
                 if "ema" in state:
                     # with_ema folds in the parameters given to the update
@@ -340,6 +415,7 @@ class AdamW(torch.optim.Optimizer):
                     warnings.warn(_SR_WARNING, stacklevel=2)
                     warned = True
                 _apply_update(p, u, generator)
+        return loss
 
     def _adam_direction(self, g, state, b1, b2, b1c, b2c, eps) -> torch.Tensor:
         """The scaled Adam direction ``m_hat / (sqrt(v_hat) + eps)``, updating the state."""
@@ -400,14 +476,26 @@ class AdamW(torch.optim.Optimizer):
         """The state as optax's state tree (``convert.adamw_state_to_optax``):
         the tree the JAX package saves as ``optimizer.msgpack``. Its leaves
         are this optimizer's own tensors, not copies."""
-        return adamw_state_to_optax(int(self.count), self._named_states(), self.factored)
+        tree = adamw_state_to_optax(int(self.count), self._named_states(), self.factored,
+                                    clipped=self.max_grad_norm is not None)
+        if self.plateau is not None:
+            tree = {"0": tree, "1": dict(self.plateau_state)}
+        return tree
 
     @torch.no_grad()
     def load_state_dict(self, state_dict: dict) -> None:
         """Copy an optax state tree (``state_dict``'s layout, with arrays or
         tensors of the same names and shapes) into this optimizer's state."""
         states = self._named_states()
-        count, loaded = adamw_state_from_optax(state_dict, states, self.factored)
+        if self.plateau is not None:
+            if set(state_dict) != {"0", "1"} or set(state_dict["1"]) != set(self.plateau_state):
+                raise ValueError("this optimizer keeps a reduce_on_plateau state; the tree "
+                                 f"holds {sorted(state_dict)}")
+            for key, value in state_dict["1"].items():
+                self.plateau_state[key].copy_(torch.as_tensor(value))
+            state_dict = state_dict["0"]
+        count, loaded = adamw_state_from_optax(state_dict, states, self.factored,
+                                               clipped=self.max_grad_norm is not None)
         self.count.fill_(count)
         for name, state in states.items():
             for key, value in loaded[name].items():
@@ -451,9 +539,8 @@ def adamw(
     (blockwise codes; factored path only). Each update is cast to its
     parameter's dtype before it is added (``with_final_update_cast``)
     unless ``cast_final_updates=False``, which stochastic rounding wants.
+    ``max_grad_norm`` clips the gradients by their global norm first.
     """
-    if max_grad_norm is not None:
-        raise not_ported("adamw max_grad_norm", "the rest of losses, training and data")
     if mu_dtype == "int8" and not factored_second_moment:
         raise ValueError("mu_dtype='int8' requires factored_second_moment=True "
                          "(the blockwise-quantized mu lives in the factored kernel)")
@@ -462,7 +549,7 @@ def adamw(
     return AdamWTransform(
         learning_rate=learning_rate, weight_decay=weight_decay, betas=betas,
         eps=eps, mu_dtype=mu_dtype, factored_second_moment=factored_second_moment,
-        cast_final_updates=cast_final_updates,
+        cast_final_updates=cast_final_updates, max_grad_norm=max_grad_norm,
     )
 
 
@@ -546,7 +633,67 @@ class StepLR:
         self.factor = float(state["factor"])
 
 
-__all__ = ["AdamW", "AdamWTransform", "Quantized8", "StepLR", "StepLRSchedule", "adamw",
+
+class ReduceLROnPlateau:
+    """The per-epoch protocol's plateau schedule: the ``Trainer`` calls
+    ``step(train_err)`` after every epoch (``needs_metric``) and multiplies
+    every update by ``factor``, which falls by ``reduction`` (never below
+    ``min_factor``) once the metric has missed ``best * (1 - threshold)``
+    more than ``patience`` epochs in a row. :func:`reduce_on_plateau` is the
+    same idea folded into the optimizer, per step."""
+
+    needs_metric = True
+
+    def __init__(self, factor: float = 0.5, patience: int = 5,
+                 threshold: float = 1e-4, min_lr_factor: float = 0.0):
+        self.reduction = float(factor)
+        self.patience = int(patience)
+        self.threshold = float(threshold)
+        self.min_factor = float(min_lr_factor)
+        self.best = float("inf")
+        self.bad_epochs = 0
+        self.factor = 1.0
+
+    def step(self, metric) -> None:
+        metric = float(metric)
+        if metric < self.best * (1 - self.threshold):
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.factor = max(self.factor * self.reduction, self.min_factor)
+                self.bad_epochs = 0
+
+    def state_dict(self) -> dict:
+        return {"best": self.best, "bad_epochs": self.bad_epochs, "factor": self.factor}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.best = float(state["best"])
+        self.bad_epochs = int(state["bad_epochs"])
+        self.factor = float(state["factor"])
+
+
+def reduce_on_plateau(optimizer: AdamWTransform, factor: float = 0.5, patience: int = 5,
+                      atol: float = 0.0, rtol: float = 1e-4) -> AdamWTransform:
+    """``optimizer`` with every update scaled by a plateau factor
+    (``optax.chain(optimizer, optax.contrib.reduce_on_plateau(...))``): the
+    scale falls by ``factor`` whenever ``patience`` consecutive steps' loss
+    failed to beat ``(1 - rtol) * best - atol``. The bound optimizer takes the
+    loss as ``step(value=...)``; the ``Trainer`` passes each step's loss (it
+    reads the optimizer's ``needs_value``). The state stays on the device,
+    so the staged step's CUDA graph replays it."""
+    if not 0.0 < factor < 1.0:
+        raise ValueError(f"Factor must be in the range (0, 1), got factor = {factor}.")
+    if rtol < 0.0 or atol < 0.0 or (rtol == 0.0 and atol == 0.0) or rtol > 1.0:
+        raise ValueError(f"need 0 <= rtol <= 1, atol >= 0 and one positive, got rtol = {rtol} "
+                         f"and atol = {atol}")
+    return AdamWTransform(**optimizer.settings, plateau=dict(
+        factor=float(factor), patience=int(patience), atol=float(atol), rtol=float(rtol)))
+
+
+__all__ = ["AdamW", "AdamWTransform", "Quantized8", "ReduceLROnPlateau", "StepLR",
+           "StepLRSchedule", "adamw",
            "apply_updates_sr", "build_optimizer", "dequantize_blockwise", "ema_params",
-           "quantize_blockwise", "round_bf16_with_noise", "step_lr", "stochastic_round_to",
-           "with_ema"]
+           "quantize_blockwise", "reduce_on_plateau", "round_bf16_with_noise", "step_lr",
+           "stochastic_round_to", "with_ema"]

@@ -50,8 +50,10 @@ from .staged_step import StagedStep
 from .training_state import load_training_state, read_manifest, save_training_state
 
 
-def _to_half(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+def _to_half(t):
+    """A f32 tensor in bf16; anything else (another dtype, a mode count) as it is."""
+    return t.to(torch.bfloat16) if isinstance(t, torch.Tensor) and t.dtype == torch.float32 \
+        else t
 
 
 def _half_params(model: torch.nn.Module) -> dict:
@@ -151,6 +153,11 @@ class Trainer:
         self.optimizer = None
         self.start_epoch = 0
         self.staged_step: Optional[StagedStep] = None
+        # keyword arguments that every train step adds to its model call, read
+        # at each call: a subclass changes them between epochs (the
+        # incremental FNO's n_modes). A dict, not a method, so that the step
+        # closures do not hold the Trainer (see _output).
+        self.train_forward_kwargs: dict = {}
 
     # ------------------------------------------------------------------ #
     def _put(self, batch: dict) -> dict:
@@ -166,6 +173,7 @@ class Trainer:
         optimizer = self.optimizer
         mixed = self.mixed_precision
         generator = self.sr_generator
+        forward_kwargs = self.train_forward_kwargs
 
         def penalty():
             # a penalty on the parameters, given as the flat
@@ -208,6 +216,7 @@ class Trainer:
             kwargs = {
                 k: v for k, v in sample.items() if k != "y" and not k.startswith("_loss_")
             }
+            kwargs.update(forward_kwargs)
             if rollout_steps > 1:
                 loss = rollout_loss(sample, kwargs)
                 return loss + penalty() if regularizer is not None else loss
@@ -220,16 +229,19 @@ class Trainer:
                 loss = training_loss(out, sample["y"])
             return loss + penalty() if regularizer is not None else loss
 
+        # an optimizer under reduce_on_plateau takes the step's loss (optax's value=)
+        needs_value = getattr(optimizer, "needs_value", False)
+
         def step(batch, lr_scale) -> torch.Tensor:
             # nothing here reads the device: the staged path captures it
             model.train()
             optimizer.zero_grad(set_to_none=True)
             loss = loss_fn(batch)
             loss.backward()
-            if generator is None:
-                optimizer.step(lr_scale=lr_scale)
-            else:
-                optimizer.step(lr_scale=lr_scale, generator=generator)
+            extra = {"value": loss.detach()} if needs_value else {}
+            if generator is not None:
+                extra["generator"] = generator
+            optimizer.step(lr_scale=lr_scale, **extra)
             return loss.detach()
 
         return step
@@ -449,6 +461,7 @@ class Trainer:
             epoch_time = time.perf_counter() - t0
             all_metrics["train_err"] = train_err
             all_metrics["epoch_time"] = epoch_time
+            self._end_epoch(epoch, train_err)
 
             if epoch % self.eval_interval == 0 or epoch == self.n_epochs - 1:
                 eval_metrics = self.evaluate_all(eval_step, test_loaders)
@@ -473,6 +486,9 @@ class Trainer:
             save_training_state(save_dir, "model", self.model.state_dict(),
                                 self.optimizer.state_dict(), epoch=self.n_epochs - 1)
         return all_metrics
+
+    def _end_epoch(self, epoch: int, train_err: float) -> None:
+        """Called after each epoch's scheduler step, before its evaluation."""
 
     def _warm_start(self, src, name: str, with_optimizer: bool) -> None:
         """Weights (and, asked, the optimizer state) of another run; the

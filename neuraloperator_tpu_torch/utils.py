@@ -1,5 +1,6 @@
-"""Small shared utilities (port of ``count_model_params`` and
-``validate_scaling_factor`` of ``neuraloperator_tpu/utils.py``)."""
+"""Small shared utilities (port of ``count_model_params``,
+``validate_scaling_factor`` and ``compute_explained_variance`` of
+``neuraloperator_tpu/utils.py``)."""
 
 import math
 from typing import List, Optional, Union
@@ -48,4 +49,14 @@ def validate_scaling_factor(
     return None
 
 
-__all__ = ["count_model_params", "validate_scaling_factor"]
+def compute_explained_variance(frequency_max: int, s) -> float:
+    """The share of ``sum(s**2)`` in the first ``frequency_max`` entries of
+    ``s`` (a negative count drops that many from the end, as a slice does),
+    in f32 as the JAX function computes it; the incremental FNO trainer's
+    gradient criterion."""
+    s = torch.as_tensor(s, dtype=torch.float32)
+    total = torch.sum(s ** 2)
+    return float(torch.sum(s[:frequency_max] ** 2) / total)
+
+
+__all__ = ["compute_explained_variance", "count_model_params", "validate_scaling_factor"]

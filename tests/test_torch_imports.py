@@ -130,6 +130,18 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/layers/spectral_projection.py",
         "neuraloperator_tpu_torch/layers/attention_kernel_integral.py",
         "neuraloperator_tpu_torch/models/torch_import.py",
+        "neuraloperator_tpu_torch/training/patching.py",
+        "neuraloperator_tpu_torch/training/incremental.py",
+        "neuraloperator_tpu_torch/training/tensor_galore.py",
+        "neuraloperator_tpu_torch/training/profiling.py",
+        "neuraloperator_tpu_torch/data/transforms/base_transforms.py",
+        "neuraloperator_tpu_torch/data/transforms/patching_transforms.py",
+        "neuraloperator_tpu_torch/data/datasets/prefetch.py",
+        "neuraloperator_tpu_torch/data/datasets/hdf5_dataset.py",
+        "neuraloperator_tpu_torch/scripts/train_incremental_fno_darcy.py",
+        "neuraloperator_tpu_torch/scripts/test_from_config.py",
+        "neuraloperator_tpu_torch/scripts/merge_ns_train_data.py",
+        "neuraloperator_tpu_torch/scripts/compress_checkpoint.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -228,6 +240,12 @@ def _new_entry_points():
         train_sfno_swe,
         train_uqno_darcy,
     )
+    from neuraloperator_tpu_torch.scripts import (
+        compress_checkpoint,
+        test_from_config,
+        train_incremental_fno_darcy,
+    )
+    from neuraloperator_tpu_torch.data.datasets import PrefetchLoader
     from neuraloperator_tpu_torch.training import load_training_state
 
     flagship = ROOT / "artifacts/ns128_v2"
@@ -273,6 +291,10 @@ def _new_entry_points():
         "SpectralConv2d": lambda: legacy.SpectralConv2d(2, 2, (2, 2)),
         "JointFactorizedSpectralConv": lambda: legacy.JointFactorizedSpectralConv(2, 2, (4, 4)),
         "AttentionKernelIntegral": lambda: attention.AttentionKernelIntegral(4, 4, 1, 4),
+        "train_incremental_fno_darcy.main": lambda: train_incremental_fno_darcy.main([]),
+        "test_from_config.main": lambda: test_from_config.main([]),
+        "compress_checkpoint.main": lambda: compress_checkpoint.main(["--dir", "/nonexistent"]),
+        "PrefetchLoader": lambda: PrefetchLoader([]),
     }
 
 
@@ -292,7 +314,9 @@ def _new_entry_points():
                                   "train_poisson.main", "GINO", "FNOGNO",
                                   "train_otno_carcfd.main", "OTNO", "OTDataModule",
                                   "SpectralConv2d", "JointFactorizedSpectralConv",
-                                  "AttentionKernelIntegral"])
+                                  "AttentionKernelIntegral", "train_incremental_fno_darcy.main",
+                                  "test_from_config.main", "compress_checkpoint.main",
+                                  "PrefetchLoader"])
 def test_checkpoint_solver_and_eval_entry_points_refuse_the_cpu_fallback(no_card, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _new_entry_points()[name]()

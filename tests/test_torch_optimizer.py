@@ -214,8 +214,8 @@ def test_unported_options_raise():
                                     ).settings["cast_final_updates"]
     with pytest.raises(ValueError):
         topt.build_optimizer(SimpleNamespace(**base, opt_state="other"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.adamw(1e-3, max_grad_norm=1.0)
+    # and so is max_grad_norm (tests/test_torch_training_extras.py)
+    assert topt.adamw(1e-3, max_grad_norm=1.0).settings["max_grad_norm"] == 1.0
     with pytest.raises(ValueError, match="factored_second_moment"):
         topt.adamw(1e-3, mu_dtype="int8")
 
