@@ -310,7 +310,26 @@ Phases, each printed with its elapsed seconds as it goes:
    the exported artifacts of phases 12 and 14 share one fresh process,
    the solver replays its steps as CUDA graphs, and every profile
    window reads the profiler's raw events;
-25. prints one ``{"kernels": [...]}`` line, then, as the last line,
+25. distribution: ``scripts.train_navier_stokes`` at full width from the
+   published weights on the loader loop, 25 steps of batch 8 on phase 5's
+   pairs and an evaluation of 32 test pairs, (a) without and with
+   ``--distributed.use_distributed true`` (a world of one on NCCL, which
+   skips the reductions over a group of one; one all-reduce of a small
+   tensor on the world checks NCCL), (b) with it under ZeRO
+   (``Trainer(zero_sharding=True)``, which cuts nothing at data size 1):
+   metrics and parameters equal to the bit, K1-K3 launched once per layer
+   and step (K1 also per evaluation forward), each step's ms and peak
+   memory, ZeRO's peak no higher than (a)'s; (c) two spawned ranks sharing
+   the card on gloo (NCCL refuses two ranks on one device), one
+   data-parallel step of global batch 8 (4 rows a rank) of the seeded
+   flagship against one rank's step on the 8 rows (the loss, and every
+   gradient within STEP_GRAD_TOL against the larger of its norm and 1% of
+   the whole gradient's), ZeRO against replicated to the bit, each rank's
+   step ms and peak memory with and without ZeRO, ZeRO's no higher. Gloo runs no
+   ``all_to_all`` and no point-to-point send on CUDA tensors, so the sharded
+   FFT (``DistributedSpectralConv2d``) and the halo exchange are held on the
+   CPU only (``tests/test_torch_distributed_fft.py``);
+26. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -821,6 +840,28 @@ GALORE_UPDATE_TOL, GALORE_VANISH = 1e-3, 1e-5
 # ThroughputMeter's ms a forward against CUDA events' over the same forwards
 METER_FORWARDS, METER_TOL = 10, 0.1
 OPTION_STEPS, OPTION_RES, OPTION_MODES = 3, 32, [16, 16]
+
+# the distribution phase (25): train_navier_stokes on the loader loop from the
+# published weights, 25 steps of batch 8 and an evaluation of 32 test pairs,
+# without --distributed.use_distributed, with it (a world of one on NCCL) and
+# with it under ZeRO, once each; then one data-parallel step of global batch 8 on two
+# ranks sharing the card (gloo, 4 rows a rank) against one rank's step on
+# the 8 rows, replicated and under ZeRO, each rank's group ended within
+# DIST_TIMEOUT_S
+DIST_PAIRS, DIST_TESTS, DIST_RANKS, DIST_TIMED_STEPS = 200, 32, 2, 3
+DIST_TIMEOUT_S = 180
+DIST_FLAGS = [
+    "--data.n_train", str(DIST_PAIRS), "--data.train_resolution", "128",
+    "--data.n_tests", f"[{DIST_TESTS}]", "--data.test_resolutions", "[128]",
+    "--data.test_batch_sizes", f"[{EVAL_BATCH}]", "--data.batch_size", str(TRAIN_BATCH),
+    "--model.n_modes", "[64,64]", "--model.hidden_channels", "64",
+    "--model.projection_channel_ratio", "4",
+    "--opt.learning_rate", "3e-5", "--opt.weight_decay", "1e-4",
+    "--opt.training_loss", "h1", "--opt.step_size", "50", "--opt.gamma", "0.5",
+    "--opt.opt_state", "factored", "--opt.mixed_precision", "false", "--opt.n_epochs", "1",
+    "--device_dataset", "false", "--eval_interval", "1", "--normalizer_from", str(FLAGSHIP),
+    "--warm_start_from", str(FLAGSHIP), "--warm_start_name", CHECKPOINT,
+]
 
 # the profile tables' kinds of kernel, by words in a kernel's name (first match)
 KERNEL_KINDS = (("K1-K3", ("channel_contraction", "weight_grad")),
@@ -5221,6 +5262,198 @@ def patching(recipe_run: dict) -> dict:
             "phase_s": phase_s}
 
 
+def dist_script_run(label: str, flags: list, zero: bool = False) -> dict:
+    """(25a/b) one train_navier_stokes run on the loader loop: its metrics,
+    the trained parameters, the launches, the step ms and the peak memory;
+    ``zero`` builds its Trainer with ``zero_sharding=True``."""
+    from neuraloperator_tpu_torch.training import Trainer
+
+    init = Trainer.__init__
+
+    def with_zero(self, *args, **kwargs):
+        init(self, *args, **{**kwargs, "zero_sharding": True})
+
+    record: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    if zero:
+        Trainer.__init__ = with_zero
+    try:
+        final = run_recipe_entry_point([*DIST_FLAGS, *flags], record)
+    finally:
+        Trainer.__init__ = init
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    trainer = record[-1][0]
+    steps = DIST_PAIRS // TRAIN_BATCH
+    out = {"metrics": final, "run_s": run_s, "steps": steps,
+           "step_ms": 1e3 * final["epoch_time"] / steps,
+           "launches": read_launches(), "launches_by_dtype": read_launches_by_dtype(),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "optimizer": type(trainer.optimizer).__name__,
+           "mesh": None if trainer.mesh is None else repr(trainer.mesh),
+           "params": {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}}
+    log(f"distribution: {label}: {steps} loop steps and an evaluation of {DIST_TESTS} pairs "
+        f"in {run_s:.1f} s, step {out['step_ms']:.3f} ms, metrics {final}, optimizer "
+        f"{out['optimizer']}, mesh {out['mesh']}, launches {out['launches']}, peak "
+        f"{out['peak_mib']:.0f} MiB")
+    return out
+
+
+def dist_rank_step(rank: int, world: int, x, y, state, loss_one, grads_one) -> dict:
+    """(25c) one rank of two on the card: one data-parallel step of the
+    flagship from ``state`` on its 4 of the 8 rows, replicated and under
+    ZeRO, held here to one rank's step on the 8 rows (``loss_one``,
+    ``grads_one``) and to each other; then the step's ms over
+    DIST_TIMED_STEPS more steps, and the peak memory of each."""
+    from neuraloperator_tpu_torch.data.transforms import load_data_processor
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.models import model_from_metadata
+    from neuraloperator_tpu_torch.parallel import mesh as mesh_lib
+    from neuraloperator_tpu_torch.training import Trainer, build_optimizer
+
+    started = time.time()
+    torch.cuda.set_device(0)
+    mesh = mesh_lib.init(1, device="cuda")
+    processor = load_data_processor(FLAGSHIP)
+    model = model_from_metadata(flagship_meta(), device="cuda")
+    out = {"backend": torch.distributed.get_backend(), "mesh": repr(mesh), "started": started}
+    runs = {}
+    for zero in (False, True):
+        model.load_state_dict(state)
+        trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device="cuda",
+                          mesh=mesh, zero_sharding=zero)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        metrics = trainer.train([{"x": x, "y": y}], {}, build_optimizer(OPT, 1),
+                                training_loss=H1Loss(d=2))
+        torch.cuda.synchronize()
+        runs[zero] = {"loss": metrics["train_err"], "launches": read_launches(),
+                      "optimizer": type(trainer.optimizer).__name__,
+                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                      "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                      "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+        if not zero:
+            timed = trainer.train([{"x": x, "y": y}] * DIST_TIMED_STEPS, {},
+                                  build_optimizer(OPT, DIST_TIMED_STEPS),
+                                  training_loss=H1Loss(d=2))
+            out["step_ms"] = 1e3 * timed["epoch_time"] / DIST_TIMED_STEPS
+    rep, cut = runs[False], runs[True]
+    errs = grad_errors(rep["grads"], grads_one)
+    worst = max(errs, key=errs.get)
+    out.update(loss_rel_err=abs(rep["loss"] - loss_one) / abs(loss_one),
+               grad_err_max=errs[worst], grad_worst=worst, peak_mib=rep["peak_mib"],
+               zero_peak_mib=cut["peak_mib"], launches=rep["launches"],
+               zero_launches=cut["launches"], zero_optimizer=cut["optimizer"],
+               zero_loss_equal=cut["loss"] == rep["loss"],
+               zero_unequal=[n for n, p in rep["params"].items()
+                             if not torch.equal(p, cut["params"][n])],
+               work_s=time.time() - started)
+    return out
+
+
+def distribution() -> dict:
+    """(25) the distribution phase: (a) train_navier_stokes with and without
+    --distributed.use_distributed (NCCL, a world of one) to the bit, (b) the
+    same under ZeRO to the bit, (c) two ranks sharing the card (gloo) against
+    one rank, replicated and under ZeRO."""
+    import torch.distributed as dist
+
+    from neuraloperator_tpu_torch.data.transforms import load_data_processor
+    from neuraloperator_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    n_layers = flagship_meta()["init_kwargs"]["n_layers"]
+    plain = dist_script_run("without the flag", [])
+    dist_flag = ["--distributed.use_distributed", "true"]
+    flagged = dist_script_run("--distributed.use_distributed true", dist_flag)
+    backend = dist.get_backend()
+    zero = dist_script_run("--distributed.use_distributed true under ZeRO", dist_flag,
+                           zero=True)
+    # the reductions skip a group of one: NCCL itself, on the world
+    probe = torch.ones(4, device="cuda")
+    dist.all_reduce(probe)
+    if not torch.equal(probe.cpu(), torch.ones(4)):
+        raise AssertionError(f"distribution: an all-reduce over one rank gave {probe}")
+    steps, evals = plain["steps"], DIST_TESTS // EVAL_BATCH
+    expected = {"mode_contraction": n_layers * (steps + evals),
+                "mode_contraction_dx": n_layers * steps, "mode_contraction_dw": n_layers * steps}
+    for label, run in (("plain", plain), ("distributed", flagged), ("zero", zero)):
+        only_dtype(run["launches_by_dtype"], "float32")
+        if run["launches"] != expected:
+            raise AssertionError(f"distribution: the {label} run launched {run['launches']}, "
+                                 f"expected {expected}")
+    if not (backend == "nccl" and flagged["mesh"] and zero["optimizer"] == "ZeroAdamW"
+            and plain["mesh"] is None):
+        raise AssertionError(f"distribution: backend {backend}, meshes {flagged['mesh']} / "
+                             f"{plain['mesh']}, ZeRO optimizer {zero['optimizer']}")
+    # (a) and (b): no reduction over one rank, no ZeRO cut at data size 1:
+    # equal to the bit
+    for label, run in (("(a) distributed", flagged), ("(b) ZeRO", zero)):
+        metrics = {k: v for k, v in run["metrics"].items() if "time" not in k}
+        want = {k: v for k, v in plain["metrics"].items() if "time" not in k}
+        unequal = [n for n, p in plain["params"].items() if not torch.equal(p, run["params"][n])]
+        if metrics != want or unequal:
+            raise AssertionError(f"distribution: {label} departs from the plain run: metrics "
+                                 f"{metrics} vs {want}, parameters {unequal[:5]}")
+    if zero["peak_mib"] > flagged["peak_mib"]:
+        raise AssertionError(f"distribution: (b) ZeRO's peak {zero['peak_mib']:.1f} MiB "
+                             f"above (a)'s {flagged['peak_mib']:.1f}")
+    log(f"distribution: (a) and (b) equal to the plain run to the bit (metrics and "
+        f"{len(plain['params'])} parameters); step ms plain {plain['step_ms']:.3f}, "
+        f"distributed {flagged['step_ms']:.3f}, ZeRO {zero['step_ms']:.3f}")
+
+    # (c) two ranks on the card against one rank on the same 8 rows
+    in_std = float(load_data_processor(FLAGSHIP).in_normalizer.std.ravel()[0])
+    x, y = make_pairs(TRAIN_BATCH, in_std, SEED + 5)
+    model = seeded_flagship("cuda", SEED + 7)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    loss_one, grads_one = one_step(model, load_data_processor(FLAGSHIP), x, y, "cuda")
+    t1, spawned = time.perf_counter(), time.time()
+    ranks = run_ranks(dist_rank_step, DIST_RANKS, (x, y, state, loss_one, grads_one),
+                      timeout_s=DIST_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t1
+    want_launches = {"mode_contraction": n_layers, "mode_contraction_dx": n_layers,
+                     "mode_contraction_dw": n_layers}
+    per_rank = []
+    for r, got in enumerate(ranks):
+        got["start_s"] = got.pop("started") - spawned
+        per_rank.append(got)
+        if not (got["loss_rel_err"] <= STEP_LOSS_TOL and got["grad_err_max"] <= STEP_GRAD_TOL):
+            raise AssertionError(f"distribution: (c) rank {r}'s step departs from one rank's: "
+                                 f"{got}")
+        if (got["zero_unequal"] or not got["zero_loss_equal"]
+                or got["zero_optimizer"] != "ZeroAdamW"
+                or got["zero_peak_mib"] > got["peak_mib"]):
+            raise AssertionError(f"distribution: (c) rank {r}: ZeRO departs from the "
+                                 f"replicated step: {got}")
+        if got["launches"] != want_launches or got["zero_launches"] != want_launches:
+            raise AssertionError(f"distribution: (c) rank {r} launched {got['launches']} / "
+                                 f"{got['zero_launches']}, expected {want_launches}")
+        if got["backend"] != "gloo":
+            raise AssertionError(f"distribution: (c) rank {r} ran on {got['backend']}")
+    log(f"distribution: (c) {DIST_RANKS} ranks on the card (gloo) in {ranks_s:.1f} s, one "
+        f"step of global batch {TRAIN_BATCH} against one rank's: {per_rank}")
+    # end the world of one: nothing after this phase runs distributed
+    dist.destroy_process_group()
+    phase_s = time.perf_counter() - t0
+    runs = (plain, flagged, zero)
+    launches = {k: sum(r["launches"][k] for r in runs) for k in plain["launches"]}
+    by_dtype = {k: {dt: sum(r["launches_by_dtype"][k][dt] for r in runs)
+                    for dt in plain["launches_by_dtype"][k]}
+                for k in plain["launches_by_dtype"]}
+    log(f"distribution: phase in {phase_s:.1f} s; launches {launches}")
+    return {"launches": launches, "launches_by_dtype": by_dtype, "backend": backend,
+            "step_ms": {"plain": plain["step_ms"], "distributed": flagged["step_ms"],
+                        "zero": zero["step_ms"]},
+            "peak_mib": {"plain": plain["peak_mib"], "distributed": flagged["peak_mib"],
+                         "zero": zero["peak_mib"]},
+            "two_ranks": per_rank, "two_ranks_s": ranks_s, "phase_s": phase_s}
+
+
 def kernel_line(variants, paths) -> list:
     """The {"kernels": [...]} entries: the f32 B=8 variant of each kernel,
     with its launches summed over the paths, by path, by dtype, and by path
@@ -5372,6 +5605,7 @@ def main() -> None:
     gno_run = gno()
     otno_run = otno()
     patching_run = patching(recipe_run)
+    distribution_run = distribution()
 
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
                                      "recipe": recipe_run, "mixed": mixed_run,
@@ -5382,7 +5616,8 @@ def main() -> None:
                                      "families": families_run, "uqno": uqno_run,
                                      "sfno": sfno_run, "mhd_multivar": mhd_multivar_run,
                                      "burgers": burgers_run, "gno": gno_run,
-                                     "otno": otno_run, "patching": patching_run})
+                                     "otno": otno_run, "patching": patching_run,
+                                     "distribution": distribution_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     kernels[0]["patched_eval_check"] = patched_eval_k1
@@ -5432,7 +5667,9 @@ def main() -> None:
         f"{otno_run['result']['test_l2']:.6f}, loop step {otno_run['step_ms']:.3f} ms, OT maps "
         f"{otno_run['ot_maps']['seconds']['torch_cuda']:.3f} s a body on the card; patched "
         f"recipe train_err {patching_run['train_err']}, step ms {patching_run['step_ms']}, "
-        f"peak {patching_run['peak_mib']:.0f} MiB")
+        f"peak {patching_run['peak_mib']:.0f} MiB; distribution step ms "
+        f"{distribution_run['step_ms']}, two ranks "
+        f"{[(r['step_ms'], r['peak_mib'], r['zero_peak_mib']) for r in distribution_run['two_ranks']]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -17,10 +17,11 @@ from .prefetch import PrefetchLoader
 from .pt_dataset import PTDataset, load_pt_as_numpy
 from .spherical_swe import SphericalSWEDataset, SphericalSWESolver, load_spherical_swe
 from .synthetic_cfd import generate_cfd_sample, load_synthetic_cfd
-from .tensor_dataset import DataLoader, DictDataset, TensorDataset
+from .tensor_dataset import DataLoader, DictDataset, GeneralTensorDataset, TensorDataset
 
 __all__ = ["BurgersDataset", "CFDDataProcessor", "CarCFDDataset", "CarOTDataset",
-           "DarcyDataset", "DataLoader", "DictDataset", "H5pyDataset", "MeshDataModule",
+           "DarcyDataset", "DataLoader", "DictDataset", "GeneralTensorDataset", "H5pyDataset",
+           "MeshDataModule",
            "NavierStokesDataset", "NonlinearPoissonDataset", "OTDataModule",
            "PTDataset", "PrefetchLoader", "PoissonGINODataProcessor", "SphericalSWEDataset",
            "SphericalSWESolver", "TensorDataset", "generate_cfd_sample",

@@ -8,7 +8,9 @@ out, the consumer's stream waits for that stream and the batch's tensors are
 recorded on the consumer's stream, so their memory is not reused before the
 consumer's kernels have read it. An exception in the worker reaches the
 consumer at the end of the batches before it; a consumer that stops
-early ends the worker at its next batch.
+early ends the worker at its next batch. With a ``mesh``, each batch is
+this data rank's slice of the global batch on the mesh's device
+(``parallel.mesh.shard_batch``), which the ``Trainer`` takes as it is.
 """
 
 import queue
@@ -17,7 +19,8 @@ from typing import Iterable, Iterator
 
 import torch
 
-from ..._common import not_ported, resolve_device
+from ..._common import resolve_device
+from ...parallel import mesh as mesh_lib
 
 
 class PrefetchLoader:
@@ -29,19 +32,21 @@ class PrefetchLoader:
     def __init__(self, loader: Iterable, depth: int = 2, mesh=None, device="cuda"):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
-        if mesh is not None:
-            raise not_ported("PrefetchLoader mesh", "distribution")
         self.loader = loader
         self.depth = depth
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
 
     def __len__(self) -> int:
         return len(self.loader)
 
     def _place(self, batch: dict, stream) -> dict:
-        out = {}
+        out = {} if self.mesh is None else mesh_lib.ShardedBatch()
         for k, v in batch.items():
             t = torch.as_tensor(v)
+            if self.mesh is not None and t.ndim > 0:
+                out.global_batch_size = len(t)
+                t = t[mesh_lib.local_slice(len(t), self.mesh)]
             if stream is None:
                 out[k] = t.to(self.device)
                 continue

@@ -48,6 +48,28 @@ class DictDataset:
         return {**self.data_list[i], **self.constant}
 
 
+
+class GeneralTensorDataset:
+    """Aligned arrays, each with its transform (None for none): item ``i`` is
+    the list of every array's transformed ``i``-th entry, or that entry
+    alone when there is one array."""
+
+    def __init__(self, sets, transforms):
+        if len(sets) != len(transforms):
+            raise ValueError("Size mismatch between number of tensors and transforms")
+        if any(len(s) != len(sets[0]) for s in sets[1:]):
+            raise ValueError("Size mismatch between tensors")
+        self.sets = sets
+        self.transforms = transforms
+
+    def __len__(self) -> int:
+        return len(self.sets[0])
+
+    def __getitem__(self, index):
+        items = [s[index] if t is None else t(s[index])
+                 for s, t in zip(self.sets, self.transforms)]
+        return items if len(items) > 1 else items[0]
+
 class DataLoader:
     """Epoch iterator over a dataset, yielding dict batches of numpy arrays."""
 

@@ -6,10 +6,11 @@ from .data_processors import (
     MGPatchingDataProcessor,
     load_data_processor,
 )
-from .normalizers import UnitGaussianNormalizer
+from .normalizers import DictUnitGaussianNormalizer, UnitGaussianNormalizer
 from .patching_transforms import MGPatchingTransform, MGPTensorDataset, RandomMGPatch
 
 __all__ = ["CompositeTransform", "DataProcessor", "DefaultDataProcessor", "DictTransform",
+           "DictUnitGaussianNormalizer",
            "IncrementalDataProcessor", "MGPTensorDataset", "MGPatchingDataProcessor",
            "MGPatchingTransform", "RandomMGPatch", "Transform", "UnitGaussianNormalizer",
            "load_data_processor"]

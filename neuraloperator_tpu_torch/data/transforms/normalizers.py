@@ -1,7 +1,9 @@
 """Gaussian normalization (port of ``neuraloperator_tpu/data/transforms/normalizers.py``).
 
 ``UnitGaussianNormalizer`` with dimension-reduced statistics, ``fit``,
-streaming ``partial_fit`` and ``from_dataset``, as in the JAX package. The
+streaming ``partial_fit`` and ``from_dataset``, and
+``DictUnitGaussianNormalizer`` (one normalizer per key of a dict sample),
+as in the JAX package. The
 statistics are numpy arrays fitted on the host in float32 numpy, so both
 packages fit the same numbers from the same data.
 """
@@ -114,3 +116,19 @@ class UnitGaussianNormalizer:
         if norm.std is not None:
             norm._var = norm.std ** 2
         return norm
+
+
+class DictUnitGaussianNormalizer:
+    """Per-key normalizers over dict samples: a key with a normalizer is
+    transformed by it, any other passes through."""
+
+    def __init__(self, normalizers: dict):
+        self.normalizers = normalizers
+
+    def transform(self, d: dict) -> dict:
+        return {k: self.normalizers[k].transform(v) if k in self.normalizers else v
+                for k, v in d.items()}
+
+    def inverse_transform(self, d: dict) -> dict:
+        return {k: self.normalizers[k].inverse_transform(v) if k in self.normalizers else v
+                for k, v in d.items()}

@@ -18,9 +18,9 @@ not. The forward on real data is
 3. ``_shrink_centered`` to the output size, ``dft_scatter_axis`` on the
    earlier axes, then ``rdft_scatter_last`` (structural Hermitian
    enforcement), or, when the output's last axis is over 512 points or the
-   symmetry is not enforced, the low modes zero-padded, the DC (and
-   even-size Nyquist) imaginary parts zeroed when enforcing, and
-   ``torch.fft.irfft``;
+   symmetry is not enforced, ``ops/fourier.irfft_hermitian`` over the last
+   axis (the DC and even-size Nyquist imaginary parts zeroed when
+   enforcing, then ``torch.fft.irfft``);
 4. the bias.
 
 On complex data the spectrum is ``torch.fft.fftn`` over every spatial axis,
@@ -48,9 +48,11 @@ the real and imaginary parts stacked on a leading axis of 2, stored as
 float32, cast to the output's dtype where it is added.
 """
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .._common import resolve_device
@@ -59,12 +61,13 @@ from ..ops.fourier import (
     dft_gather_axis,
     dft_scatter_axis,
     gather_center_modes,
+    irfft_hermitian,
     rdft_gather_last,
     rdft_scatter_last,
     resolve_weight_slices,
     scatter_center_modes,
-    scatter_low_modes_last,
 )
+from ..parallel.comm import copy_to_model_parallel_region, gather_from_model_parallel_region
 from ..tensor.factorized import FactorizationSpec, init_factors, resolve_spec, slice_factors
 from ..utils import validate_scaling_factor
 from . import _init
@@ -92,7 +95,15 @@ WEIGHT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 class SpectralConv(nn.Module):
     """N-dimensional spectral convolution; ``forward(x, output_shape=None,
-    n_modes=None)`` takes the JAX layer's per-call overrides."""
+    n_modes=None)`` takes the JAX layer's per-call overrides.
+
+    ``model_group`` (a ``parallel.comm.SharedGroup``, set by
+    ``parallel.mesh.shard_params``): the process group over which a dense
+    weight's contraction is split by out channels, each rank contracting
+    with its slice and the outputs all-gathered.
+    """
+
+    model_group = None
 
     def __init__(
         self,
@@ -193,10 +204,18 @@ class SpectralConv(nn.Module):
 
     def forward(self, x: torch.Tensor, output_shape: Optional[Sequence[int]] = None,
                 n_modes: Optional[Sequence[int]] = None) -> torch.Tensor:
+        spec, factors = self.spec, self.factors()
+        group = None if self.model_group is None else self.model_group.group
+        if group is not None:
+            # this rank's out channels of the dense weight (in, out, modes...)
+            chunk = self.out_channels // dist.get_world_size(group)
+            start = dist.get_rank(group) * chunk
+            factors = {"weight": tuple(t.narrow(1, start, chunk) for t in factors["weight"])}
+            spec = dataclasses.replace(spec, shape=(spec.shape[0], chunk, *spec.shape[2:]))
         return spectral_conv_forward(
             x,
-            self.spec,
-            self.factors(),
+            spec,
+            factors,
             self.bias,
             n_modes=halve_last_mode(self.n_modes if n_modes is None else n_modes,
                                     self.complex_data),
@@ -209,6 +228,7 @@ class SpectralConv(nn.Module):
             enforce_hermitian_symmetry=self.enforce_hermitian_symmetry,
             resolution_scaling_factor=self.resolution_scaling_factor,
             output_shape=output_shape,
+            model_group=group,
         )
 
     def transform(self, x: torch.Tensor,
@@ -244,9 +264,15 @@ def spectral_conv_forward(
     enforce_hermitian_symmetry: bool = True,
     resolution_scaling_factor: Optional[Sequence[float]] = None,
     output_shape: Optional[Sequence[int]] = None,
+    model_group=None,
 ) -> torch.Tensor:
     """Functional core: x (b, in, d1..dN), the weight's ``spec`` and its
     factors ``params`` (``{name: (re, im)}``).
+
+    With ``model_group``, ``params`` hold this rank's out channels of a
+    dense weight: the contraction's input enters the model-parallel region
+    (its gradient all-reduced over the group) and its output is
+    all-gathered along the channels before the inverse transforms.
 
     ``n_modes`` has the last dim already halved on real data
     (``halve_last_mode``); ``resolution_scaling_factor`` is one factor per
@@ -302,9 +328,15 @@ def spectral_conv_forward(
             trim[-1] = slice(0, kept_last)
             spec, params = slice_factors(spec, params, trim)
 
+    if model_group is not None:
+        br = copy_to_model_parallel_region(br, model_group)
+        bi = copy_to_model_parallel_region(bi, model_group)
     out_r, out_i = contract_block((br, bi), spec, params, separable=separable,
                                   implementation=implementation,
                                   compute_dtype=torch.bfloat16 if mixed else None)
+    if model_group is not None:
+        out_r = gather_from_model_parallel_region(out_r, 1, model_group)
+        out_i = gather_from_model_parallel_region(out_i, 1, model_group)
 
     out_sizes = list(mode_sizes)
     if resolution_scaling_factor is not None and output_shape is None:
@@ -330,17 +362,9 @@ def spectral_conv_forward(
         if out_sizes[-1] <= MAX_DFT_AXIS and enforce_hermitian_symmetry:
             y = rdft_scatter_last(out_r, out_i, out_sizes[-1], fft_norm)
         else:
-            out_r = scatter_low_modes_last(out_r.float(), half)
-            out_i = scatter_low_modes_last(out_i.float(), half)
-            if enforce_hermitian_symmetry:
-                # no host-to-device copy: the mask is filled on the device
-                keep = torch.ones(half, dtype=torch.bool, device=out_i.device)
-                keep[0] = False
-                if out_sizes[-1] % 2 == 0:
-                    keep[half - 1] = False
-                out_i = torch.where(keep, out_i, 0.0)
-            y = torch.fft.irfft(torch.complex(out_r, out_i), n=out_sizes[-1], dim=-1,
-                                norm=fft_norm)
+            # the earlier axes are inverted already: the last one remains
+            y = irfft_hermitian(torch.complex(out_r.float(), out_i.float()), out_sizes[-1:],
+                                [-1], fft_norm, enforce_hermitian_symmetry)
     if mixed:
         y = (y.real if y.is_complex() else y).to(torch.bfloat16)
     if bias is not None:

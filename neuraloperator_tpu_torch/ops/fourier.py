@@ -296,6 +296,69 @@ def scatter_low_modes_last(block: torch.Tensor, size: int, axis: int = -1) -> to
     return torch.nn.functional.pad(block, pad)
 
 
+
+def irfft_hermitian(spectrum: torch.Tensor, out_sizes: Sequence[int], axes: Sequence[int],
+                    norm: str = "forward", enforce_hermitian_symmetry: bool = True
+                    ) -> torch.Tensor:
+    """Inverse real FFT over ``axes`` to ``out_sizes``, the DC and (even
+    size) Nyquist bins of the last axis made Hermitian first.
+
+    The reference's order of operations: inverse FFTs over the earlier
+    axes, the imaginary parts of those bins zeroed (the mask filled on the
+    device, so a CUDA graph can capture it), then the inverse real FFT of
+    the last axis. The JAX function symmetrizes the same bins in the
+    frequency domain (:func:`hermitianize_parts`) and runs one ``irfftn``:
+    the real part of an inverse FFT is the inverse FFT of the Hermitian
+    part, so the two agree. Without ``enforce_hermitian_symmetry``, a plain
+    ``irfftn``.
+    """
+    axes, out_sizes = list(axes), list(out_sizes)
+    if not enforce_hermitian_symmetry:
+        return torch.fft.irfftn(spectrum, s=out_sizes, dim=axes, norm=norm)
+    if len(axes) > 1:
+        spectrum = torch.fft.ifftn(spectrum, s=out_sizes[:-1], dim=axes[:-1], norm=norm)
+    last = axes[-1] % spectrum.ndim
+    n = out_sizes[-1]
+    half = n // 2 + 1
+    kept = min(half, spectrum.shape[last])
+    re = scatter_low_modes_last(spectrum.real.narrow(last, 0, kept).float(), half, last)
+    im = scatter_low_modes_last(spectrum.imag.narrow(last, 0, kept).float(), half, last)
+    keep = torch.ones(half, dtype=torch.bool, device=im.device)
+    keep[0] = False
+    if n % 2 == 0:
+        keep[half - 1] = False
+    im = torch.where(keep.reshape([half if d == last else 1 for d in range(im.ndim)]), im, 0.0)
+    return torch.fft.irfft(torch.complex(re, im), n=n, dim=last, norm=norm)
+
+
+def _reverse_frequencies(a: torch.Tensor, axis: int) -> torch.Tensor:
+    """The frequency reversal k -> -k mod n along ``axis``."""
+    n = a.shape[axis]
+    return torch.cat([a.narrow(axis, 0, 1), a.narrow(axis, 1, n - 1).flip(axis)], dim=axis)
+
+
+def hermitianize_parts(re: torch.Tensor, im: torch.Tensor, out_sizes: Sequence[int],
+                       axes: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The DC and (even size, when the last axis holds ``n // 2 + 1`` bins)
+    Nyquist bins of the last axis made Hermitian along the earlier axes, in
+    split-real form: each such column becomes ``(c + conj(c reversed)) / 2``.
+    The JAX package's frequency-domain form of :func:`irfft_hermitian`'s
+    constraint."""
+    n_last, last = out_sizes[-1], axes[-1] % re.ndim
+    h = re.shape[last]
+    fix_bins = [0]
+    if n_last % 2 == 0 and h == n_last // 2 + 1:
+        fix_bins.append(h - 1)
+    for b in fix_bins:
+        col_r, col_i = re.narrow(last, b, 1), im.narrow(last, b, 1)
+        rev_r, rev_i = col_r, col_i
+        for ax in axes[:-1]:
+            rev_r, rev_i = _reverse_frequencies(rev_r, ax), _reverse_frequencies(rev_i, ax)
+        sym_r, sym_i = 0.5 * (col_r + rev_r), 0.5 * (col_i - rev_i)
+        re = torch.cat([re.narrow(last, 0, b), sym_r, re.narrow(last, b + 1, h - b - 1)], last)
+        im = torch.cat([im.narrow(last, 0, b), sym_i, im.narrow(last, b + 1, h - b - 1)], last)
+    return re, im
+
 def resolve_weight_slices(
     fft_size: Sequence[int],
     n_modes: Sequence[int],

@@ -44,6 +44,7 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _native
 
@@ -222,6 +223,25 @@ for _kind, _plain in (("fwd", mode_contraction_reference), ("dx", mode_contracti
     torch.library.register_fake(f"neuraloperator_tpu_torch::{_name}", _fake_impl(_kind), lib=_LIB)
 _OPS = {kind: getattr(torch.ops.neuraloperator_tpu_torch, name).default
         for kind, name in _OP_NAMES.items()}
+
+
+# (B, I, O, M) of each kind from its operands' shapes
+_DIMS = {"fwd": lambda a, b: (a[0], a[1], b[1], a[2]),   # x (B, I, M), w (I, O, M)
+         "dx": lambda a, b: (a[0], b[0], a[1], a[2]),    # g (B, O, M), w (I, O, M)
+         "dw": lambda a, b: (a[0], a[1], b[1], a[2])}    # x (B, I, M), g (B, O, M)
+
+
+def _flop_formula(kind: str):
+    def formula(a_shape, a_im_shape, b_shape, b_im_shape, out_shape=None, **kwargs) -> int:
+        B, I, O, M = _DIMS[kind](a_shape, b_shape)
+        return 8 * B * I * O * M  # 8 real flops a complex multiply-add
+    return formula
+
+
+# torch.utils.flop_counter counts the three operators (utils.count_flops)
+for _kind, _name in _OP_NAMES.items():
+    register_flop_formula(getattr(torch.ops.neuraloperator_tpu_torch, _name))(
+        _flop_formula(_kind))
 
 
 def mode_contraction(xr, xi, wr, wi) -> Parts:

@@ -15,7 +15,7 @@ Usage:
       --model.hidden_channels 32 [--device cpu]
 """
 
-from .._common import not_ported, resolve_device
+from .._common import resolve_device
 from ..config import DarcyConfig, make_config_from_cli
 from ..data.datasets import load_darcy_flow_small
 from ..losses import H1Loss, LpLoss
@@ -31,9 +31,8 @@ def main(argv=None) -> dict:
     device, argv = split_device(argv)
     config = make_config_from_cli(DarcyConfig, argv)
     device = resolve_device(device)
-    if config.distributed.use_distributed:
-        raise not_ported("--distributed.use_distributed", "distribution")
-    setup(config)
+    # with --distributed.use_distributed: this process's rank of the mesh
+    mesh = setup(config, device=device)
 
     train_loader, test_loaders, data_processor = load_darcy_flow_small(
         n_train=config.data.n_train,
@@ -56,6 +55,7 @@ def main(argv=None) -> dict:
         eval_interval=config.eval_interval,
         verbose=config.verbose,
         device=device,
+        mesh=mesh,
     )
     metrics = trainer.train(
         train_loader,
@@ -64,7 +64,7 @@ def main(argv=None) -> dict:
         training_loss=h1loss if config.opt.training_loss == "h1" else l2loss,
         eval_losses={"h1": h1loss, "l2": l2loss},
     )
-    if config.verbose:
+    if config.verbose and trainer.is_writer:
         print("final:", {k: round(v, 5) for k, v in metrics.items()})
         print(f"model parameters: {count_model_params(trainer.model)}")
     return metrics

@@ -31,7 +31,7 @@ import copy
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-from .._common import not_ported, resolve_device
+from .._common import resolve_device
 from ..config import (
     ConfigBase,
     DistributedConfig,
@@ -104,9 +104,8 @@ def main(argv=None) -> dict:
     device, argv = _split_device(argv)
     config = make_config_from_cli(NSConfig, argv)
     device = resolve_device(device)
-    if config.distributed.use_distributed:
-        raise not_ported("--distributed.use_distributed", "distribution")
-    setup(config)
+    # with --distributed.use_distributed: this process's rank of the mesh
+    mesh = setup(config, device=device)
 
     train_loader, test_loaders, data_processor = load_navier_stokes_pt(
         n_train=config.data.n_train,
@@ -133,6 +132,8 @@ def main(argv=None) -> dict:
             levels=config.patching.levels,
             padding_fraction=config.patching.padding,
             stitching=config.patching.stitching,
+            use_distributed=config.distributed.use_distributed,
+            mesh=mesh,
             in_normalizer=data_processor.in_normalizer,
             out_normalizer=data_processor.out_normalizer,
         )
@@ -149,6 +150,7 @@ def main(argv=None) -> dict:
         stochastic_rounding=config.opt.stochastic_rounding,
         verbose=config.verbose,
         device=device,
+        mesh=mesh,
     )
     metrics = trainer.train(
         train_loader,
@@ -183,11 +185,13 @@ def main(argv=None) -> dict:
             p.data = ema[name].clone()
         evaluator = Trainer(model=ema_model, n_epochs=config.opt.n_epochs,
                             data_processor=data_processor,
-                            mixed_precision=config.opt.mixed_precision, device=device)
+                            mixed_precision=config.opt.mixed_precision, device=device,
+                            mesh=mesh)
         ev = evaluator._build_eval_step({"h1": h1loss, "l2": l2loss})
         ema_metrics = evaluator.evaluate_all(ev, test_loaders)
-        print("ema:", {k: round(float(v), 5) for k, v in ema_metrics.items()})
-    if config.verbose:
+        if trainer.is_writer:
+            print("ema:", {k: round(float(v), 5) for k, v in ema_metrics.items()})
+    if config.verbose and trainer.is_writer:
         print("final:", {k: round(v, 5) for k, v in metrics.items()})
         print("params:", count_model_params(trainer.model))
     return metrics

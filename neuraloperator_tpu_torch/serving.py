@@ -32,7 +32,9 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from ._common import not_ported, resolve_device
+from ._common import resolve_device
+from .parallel import mesh as mesh_lib
+from .parallel.comm import all_gather_along
 from .ops import spectral_contraction  # noqa: F401  (registers the operators an artifact calls)
 from .ops.fourier import dft_matmul_precision
 
@@ -122,6 +124,10 @@ class CompiledForward:
         ``data_processor.in_normalizer.transform``)
     postprocess_fn : applied to the model output (e.g.
         ``data_processor.out_normalizer.inverse_transform``)
+    mesh : a ``parallel.mesh.Mesh``: each rank answers its data rank's slice
+        of every bucket and the answers are all-gathered over the data
+        ranks, as the JAX class shards a bucket over the mesh's data axis
+        (every bucket must divide by the data size)
     device : ``"cuda"`` by default; raises without a card unless ``"cpu"``
     """
 
@@ -141,7 +147,11 @@ class CompiledForward:
         if quantize is not None and quantize != "int8":
             raise ValueError(f"unsupported quantize={quantize!r}")
         if mesh is not None:
-            raise not_ported("CompiledForward mesh", "distribution")
+            dp = mesh.shape[mesh_lib.DATA_AXIS]
+            bad = [b for b in batch_sizes if b % dp]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by the {dp} data ranks")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self._params = None
         if quantize is None:
@@ -171,7 +181,7 @@ class CompiledForward:
         self.compile_seconds = {}
         for b in self.batch_sizes:
             t0 = time.perf_counter()
-            self._forward(self._zeros(b))
+            self._serve(self._zeros(b))
             self._synchronize()
             self.compile_seconds[b] = time.perf_counter() - t0
 
@@ -194,6 +204,14 @@ class CompiledForward:
             out = self.postprocess_fn(out)
         return out
 
+    def _serve(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward of a whole bucket: with a mesh, this data rank's slice
+        of it, the answers all-gathered over the data ranks."""
+        if self.mesh is None:
+            return self._forward(x)
+        local = self._forward(x[mesh_lib.local_slice(len(x), self.mesh)])
+        return all_gather_along(local, 0, self.mesh.data_group)
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Answer one request ``(n, ...)``; the result stays on ``device``."""
         x = torch.as_tensor(x).to(self.device, self._dtype)
@@ -206,7 +224,7 @@ class CompiledForward:
         b = _round_up_bucket(n, self.batch_sizes)
         if b != n:
             x = torch.cat([x, x.new_zeros((b - n,) + self._feat_shape)])
-        out = self._forward(x)
+        out = self._serve(x)
         return out[:n] if out.ndim >= 1 and out.shape[0] == b else out
 
     def latency_probe(self, batch_size: Optional[int] = None, iters: int = 10) -> float:
@@ -226,11 +244,11 @@ class CompiledForward:
                 f"latency is attributed to the right program"
             )
         x = self._zeros(b)
-        self._forward(x)
+        self._serve(x)
         self._synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
-            self._forward(x)
+            self._serve(x)
             self._synchronize()
         return (time.perf_counter() - t0) / iters
 

@@ -8,9 +8,14 @@ unpadded and stitched back together. Every step is a pad, a slice, a stack
 or a reshape of tensors whose shapes the host knows, so the patched train
 step is captured in the staged CUDA graph like the plain one.
 
-The JAX package shards the patch-stacked batch over a mesh's "model" axis
-(``use_distributed``, ``mesh``); the port refuses both (ROADMAP
-"distribution").
+With ``use_distributed`` and a mesh of model size > 1, the patch-stacked
+batch is scattered over the model ranks (``comm.scatter_to_model_parallel_region``
+on dim 0: each rank runs the model on its share of the patches) and
+gathered back before stitching (``gather_from_model_parallel_region``), as
+the JAX package shards it over the mesh's "model" axis and lets XLA gather
+it. Every model rank then holds the gradient of its own patches: the
+``Trainer`` reduces the gradients over the model group too
+(``splits_over_model``).
 """
 
 import math
@@ -19,7 +24,8 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from .._common import not_ported
+from ..parallel import comm
+from ..parallel import mesh as mesh_lib
 
 
 def _wrap_pad(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
@@ -93,29 +99,45 @@ class MultigridPatching2D:
         stitching: bool = True,
         mesh=None,
     ):
-        if use_distributed or mesh is not None:
-            raise not_ported("MultigridPatching2D use_distributed/mesh", "distribution")
         self.levels = levels
         if isinstance(padding_fraction, (int, float)):
             padding_fraction = [padding_fraction, padding_fraction]
         self.padding_fraction = list(padding_fraction)
         self.n_patches = [2 ** levels, 2 ** levels]
         self.stitching = stitching
+        self.use_distributed = use_distributed
+        self.mesh = mesh or (mesh_lib.get_mesh() if use_distributed else None)
         self.padding_height = 0
         self.padding_width = 0
 
+    @property
+    def splits_over_model(self) -> bool:
+        """Whether the patches are scattered over the mesh's model ranks."""
+        return (self.use_distributed and self.mesh is not None
+                and self.mesh.shape[mesh_lib.MODEL_AXIS] > 1)
+
+    def _shard_patches(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.splits_over_model:
+            return x
+        return comm.scatter_to_model_parallel_region(x, 0, self.mesh.model_group)
+
+    def _gather_patches(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.splits_over_model:
+            return x
+        return comm.gather_from_model_parallel_region(x, 0, self.mesh.model_group)
+
     def patch(self, x: torch.Tensor, y: torch.Tensor):
         if not self.stitching:
-            y = make_patches(y, n=self.n_patches[0], p=0)
-        return self._make_mg_patches(x), y
+            y = self._shard_patches(make_patches(y, n=self.n_patches[0], p=0))
+        return self._shard_patches(self._make_mg_patches(x)), y
 
     def unpatch(self, x: torch.Tensor, y: torch.Tensor, evaluation: bool = False):
         if self.padding_height > 0 or self.padding_width > 0:
             x = self._unpad(x)
         if self.stitching or evaluation:
-            x = self._stitch(x)
+            x = self._stitch(self._gather_patches(x))
         if evaluation and not self.stitching:
-            y = self._stitch(y)
+            y = self._stitch(self._gather_patches(y))
         return x, y
 
     def _stitch(self, x: torch.Tensor) -> torch.Tensor:

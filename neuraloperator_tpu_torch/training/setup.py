@@ -13,39 +13,49 @@ off around each of them and restores the value set here. The local
 convolutions (finite-difference, DISCO, the local skip) follow the matmul
 precision set here, cuDNN's TF32 off under "highest"
 (``ops/convolution.py``).
+
+With a model-parallel size (``config.distributed.use_distributed``), it
+also joins ``torch.distributed`` and returns the mesh (``parallel/mesh.py``).
 """
 
 from typing import Optional
 
 import torch
 
-from .._common import not_ported
+from .._common import Device
+from ..parallel import mesh as mesh_lib
 
 # the JAX package's names for XLA's default matmul precision -> torch's
 _MATMUL_PRECISIONS = {"highest": "highest", "tensorfloat32": "high"}
 
 
 def setup(config=None, matmul_precision: str = "highest", seed: Optional[int] = None,
-          model_parallel_size: Optional[int] = None) -> None:
+          model_parallel_size: Optional[int] = None, device: Device = "cuda"):
     """Seed torch's default generator (which draws the weights of a model
-    built without its own generator) and set the matmul precision.
+    built without its own generator), set the matmul precision and, when
+    asked, the mesh.
 
     ``seed`` is taken from ``config.distributed.seed`` when ``config`` has
-    that section. ``matmul_precision`` is ``"highest"`` (full f32) or
-    ``"tensorfloat32"`` (TF32, the JAX package's default). The mesh of the
-    JAX package's distributed setup raises. Returns None, as the JAX
-    ``setup`` does without a mesh.
+    that section, and ``model_parallel_size`` from it with
+    ``use_distributed``. With a ``model_parallel_size``, this process joins
+    ``torch.distributed`` (``mesh.init_process_group``: ``torchrun``'s
+    ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``, or a world of one on a
+    local store; NCCL for a CUDA ``device``, gloo for the CPU) and the
+    ('data', 'model') mesh is built and returned (``mesh.init``); else
+    None, as the JAX ``setup``. ``matmul_precision`` is ``"highest"`` (full
+    f32) or ``"tensorfloat32"`` (TF32, the JAX package's default).
     """
     dist = getattr(config, "distributed", None)
     if dist is not None:
         if getattr(dist, "use_distributed", False):
             model_parallel_size = dist.model_parallel_size
         seed = getattr(dist, "seed", seed)
-    if model_parallel_size is not None:
-        raise not_ported("setup with a device mesh", "distribution")
     if matmul_precision not in _MATMUL_PRECISIONS:
         raise ValueError(f"unknown matmul_precision {matmul_precision!r}; one of "
                          f"{sorted(_MATMUL_PRECISIONS)}")
     torch.set_float32_matmul_precision(_MATMUL_PRECISIONS[matmul_precision])
     if seed is not None:
         torch.manual_seed(seed)
+    if model_parallel_size is None:
+        return None
+    return mesh_lib.init(model_parallel_size=model_parallel_size, device=device)

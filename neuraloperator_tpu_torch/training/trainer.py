@@ -31,6 +31,24 @@ the loss is the mean of the K steps' losses. ``evaluate(mode=
 ``stochastic_rounding=True`` trains bf16 master parameters, each update
 rounded stochastically from f32 with noise drawn from the Trainer's
 seeded ``sr_generator``.
+
+With a ``mesh`` (``parallel.mesh.init``; or the current one with
+``use_distributed=True``) each process is one rank of a ('data', 'model')
+layout. Every rank reads the same global batches and keeps its data
+rank's slice (``shard_batch``); the model's state is broadcast from rank 0
+when training starts; after each backward the gradients are summed over
+the data ranks for a loss with ``reduction="sum"`` and averaged for
+``"mean"`` (the loss of the JAX package's step is over the global batch),
+and so are the step's loss and each evaluation loss. A regularizer's
+penalty and its gradient are added after those reductions, once. At model
+size > 1 the dense spectral convolutions contract by out-channel slices
+(``shard_params``), whose gradients are summed over the model group; a
+patching processor that scatters its patches over the model ranks takes
+the model group instead, every gradient reduced over it. ``zero_sharding``
+cuts the optimizer state over the data ranks (``parallel.zero.ZeroAdamW``,
+bound in place of the replicated optimizer).
+Rank 0 alone writes the files and prints. ``device_dataset`` is refused
+with a mesh, as in JAX.
 """
 
 import json
@@ -46,6 +64,8 @@ from .._common import not_ported, resolve_device
 from ..data.transforms import DefaultDataProcessor
 from ..losses import LpLoss
 from ..models import base_model  # a module: base_model imports this package too
+from ..parallel import comm
+from ..parallel import mesh as mesh_lib
 from .staged_step import StagedStep
 from .training_state import load_training_state, read_manifest, save_training_state
 
@@ -106,6 +126,19 @@ def refuse_batch_stats(model: torch.nn.Module) -> None:
         )
 
 
+def _reduce_step(plan: dict, loss: torch.Tensor) -> torch.Tensor:
+    """The gradients and the loss of a distributed step reduced over the
+    ranks by ``Trainer._sync_plan``'s plan; returns the step's loss."""
+    for group, reduction in plan["grads"]:
+        comm.reduce_gradients(plan["params"], group, reduction)
+    if plan["sharded"]:
+        # each model rank holds the gradient of its out channels alone
+        comm.reduce_gradients(plan["sharded"], plan["model_group"], "sum")
+    for group, reduction in plan["loss"]:
+        loss = comm.reduce_value(loss, group, reduction)
+    return loss
+
+
 # the seed of stochastic rounding's noise (the JAX Trainer's base key)
 SR_SEED = 0x5757
 
@@ -133,9 +166,9 @@ class Trainer:
         del log_output  # read only by wandb logging in the JAX Trainer
         if wandb_log:
             raise not_ported("Trainer wandb_log", "the rest of losses, training and data")
-        if mesh is not None or use_distributed or zero_sharding:
-            raise not_ported("Trainer mesh/use_distributed/zero_sharding", "distribution")
         self.device = resolve_device(device)
+        self.mesh = mesh or (mesh_lib.get_mesh() if use_distributed else None)
+        self.zero_sharding = zero_sharding
         # bf16 master parameters, updated by stochastic rounding; the noise
         # comes from one generator on the device, seeded by train() from
         # SR_SEED and the run's first epoch and advanced every step (the JAX
@@ -161,10 +194,45 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def _put(self, batch: dict) -> dict:
+        if self.mesh is not None:
+            return mesh_lib.shard_batch(batch, self.mesh)
         return {
             k: torch.as_tensor(v).to(self.device, non_blocking=True)
             for k, v in batch.items()
         }
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the files and prints (rank 0, or no mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _sync_plan(self, training_loss) -> Optional[dict]:
+        """The reductions of a distributed step, or None without a mesh:
+        ``grads`` ((group, reduction) for every parameter), ``sharded``
+        (for the out-channel-sliced weights besides) and ``loss``."""
+        mesh = self.mesh
+        if mesh is None:
+            return None
+        reduction = getattr(training_loss, "reduction", None)
+        if reduction not in ("sum", "mean"):
+            raise ValueError("a distributed step needs a loss with reduction 'sum' or 'mean' "
+                             f"(the reduction of its value over the ranks), got {reduction!r}")
+        patcher = getattr(self.data_processor, "patcher", None)
+        split = bool(getattr(patcher, "splits_over_model", False))
+        grads = [(mesh.data_group, reduction)]
+        loss = [(mesh.data_group, reduction)]
+        if split:
+            # stitched outputs give every model rank the whole loss, whose
+            # gradient each rank holds for its own patches alone
+            stitched = patcher.stitching
+            grads.append((mesh.model_group, "sum" if stitched else reduction))
+            if not stitched:
+                loss.append((mesh.model_group, reduction))
+        names = set(getattr(self.model, "model_parallel_params", ()))
+        params = dict(self.model.named_parameters())
+        return {"grads": grads, "loss": loss, "params": list(params.values()),
+                "sharded": [params[n] for n in sorted(names)],
+                "model_group": mesh.model_group}
 
     def _build_train_step(self, training_loss, regularizer=None, rollout_steps: int = 1,
                           pushforward: bool = True) -> Callable:
@@ -174,6 +242,11 @@ class Trainer:
         mixed = self.mixed_precision
         generator = self.sr_generator
         forward_kwargs = self.train_forward_kwargs
+        plan = self._sync_plan(training_loss)
+        # Every rank holds the whole parameters, so a distributed step adds
+        # the penalty and its gradient after the reductions, once: inside
+        # them it would be summed over the ranks
+        inline_penalty = regularizer is not None and plan is None
 
         def penalty():
             # a penalty on the parameters, given as the flat
@@ -219,7 +292,7 @@ class Trainer:
             kwargs.update(forward_kwargs)
             if rollout_steps > 1:
                 loss = rollout_loss(sample, kwargs)
-                return loss + penalty() if regularizer is not None else loss
+                return loss + penalty() if inline_penalty else loss
             out = _output(model, kwargs, mixed)
             if data_processor is not None:
                 out, sample = data_processor.postprocess(out, sample, train=True)
@@ -227,7 +300,7 @@ class Trainer:
                 loss = training_loss(out, sample["y"], ynorm_sq=sample["_loss_ynorm_sq"])
             else:
                 loss = training_loss(out, sample["y"])
-            return loss + penalty() if regularizer is not None else loss
+            return loss + penalty() if inline_penalty else loss
 
         # an optimizer under reduce_on_plateau takes the step's loss (optax's value=)
         needs_value = getattr(optimizer, "needs_value", False)
@@ -238,6 +311,12 @@ class Trainer:
             optimizer.zero_grad(set_to_none=True)
             loss = loss_fn(batch)
             loss.backward()
+            if plan is not None:
+                loss = _reduce_step(plan, loss.detach())
+                if regularizer is not None:
+                    value = penalty()
+                    value.backward()
+                    loss = loss + value.detach()
             extra = {"value": loss.detach()} if needs_value else {}
             if generator is not None:
                 extra["generator"] = generator
@@ -250,6 +329,7 @@ class Trainer:
         data_processor = self.data_processor
         model = self.model
         mixed = self.mixed_precision
+        group = None if self.mesh is None else self.mesh.data_group
 
         @torch.no_grad()
         def step(batch) -> Dict[str, torch.Tensor]:
@@ -261,7 +341,12 @@ class Trainer:
             out = _output(model, kwargs, mixed)
             if data_processor is not None:
                 out, sample = data_processor.postprocess(out, sample, train=False)
-            return {name: loss(out, sample["y"]) for name, loss in eval_losses.items()}
+            values = {name: loss(out, sample["y"]) for name, loss in eval_losses.items()}
+            if group is not None:
+                values = {name: comm.reduce_value(v, group, getattr(eval_losses[name],
+                                                                     "reduction", "sum"))
+                          for name, v in values.items()}
+            return values
 
         return step
 
@@ -409,17 +494,31 @@ class Trainer:
                     f"rollout_steps={rollout_steps} needs trajectory targets "
                     f"(b, K>={rollout_steps}, c, spatial...); got {y0.shape}"
                 )
+        if self.mesh is not None:
+            if device_dataset:
+                raise ValueError("device_dataset is a single-device path; use the loader loop "
+                                 "with a mesh")
+            mesh_lib.replicate(self.model, self.mesh)
         if self.stochastic_rounding:
             # bf16 MASTER parameters: the update phase carries no f32 copy
             with torch.no_grad():
                 for p in self.model.parameters():
                     if p.dtype == torch.float32:
                         p.data = p.data.to(torch.bfloat16)
-        self.optimizer = optimizer.bind(self.model.named_parameters())
+        if self.mesh is not None and self.zero_sharding:
+            from ..parallel.zero import ZeroAdamW
+
+            self.optimizer = ZeroAdamW(optimizer, self.model.named_parameters(), self.mesh)
+        else:
+            self.optimizer = optimizer.bind(self.model.named_parameters())
         if warm_start_from is not None and resume_from_dir is None:
             self._warm_start(warm_start_from, warm_start_name, warm_start_opt)
         if resume_from_dir is not None and Path(resume_from_dir).exists():
             self._resume(resume_from_dir)
+        if self.mesh is not None:
+            patcher = getattr(self.data_processor, "patcher", None)
+            if not getattr(patcher, "splits_over_model", False):
+                mesh_lib.shard_params(self.model, self.mesh)
 
         if self.sr_generator is not None:
             # a resumed run draws other noise than the run it resumes
@@ -466,7 +565,7 @@ class Trainer:
             if epoch % self.eval_interval == 0 or epoch == self.n_epochs - 1:
                 eval_metrics = self.evaluate_all(eval_step, test_loaders)
                 all_metrics.update(eval_metrics)
-                if self.verbose:
+                if self.verbose and self.is_writer:
                     msg = ", ".join(f"{k}={v:.5f}" for k, v in eval_metrics.items())
                     print(f"[{epoch}] time={epoch_time:.2f}s train={train_err:.5f} {msg}")
                 metric = eval_metrics.get(save_best)
@@ -474,18 +573,25 @@ class Trainer:
                     best_metric = metric
                     # epoch=None: the best save must not move the manifest's
                     # resume epoch past the periodic save it rides with
-                    save_training_state(
-                        save_dir, "best_model", self.model.state_dict(), epoch=None,
-                        extra_manifest={"best_metric": float(metric), "best_epoch": epoch,
-                                        "best_key": save_best},
-                    )
+                    if self.is_writer:
+                        save_training_state(
+                            save_dir, "best_model", self.model.state_dict(), epoch=None,
+                            extra_manifest={"best_metric": float(metric), "best_epoch": epoch,
+                                            "best_key": save_best},
+                        )
             if save_every is not None and epoch % save_every == 0:
-                save_training_state(save_dir, "model", self.model.state_dict(),
-                                    self.optimizer.state_dict(), epoch=epoch)
+                self._save_state(save_dir, epoch)
         if saving:
-            save_training_state(save_dir, "model", self.model.state_dict(),
-                                self.optimizer.state_dict(), epoch=self.n_epochs - 1)
+            self._save_state(save_dir, self.n_epochs - 1)
         return all_metrics
+
+    def _save_state(self, save_dir, epoch: int) -> None:
+        """``model.msgpack`` and ``optimizer.msgpack``; every rank gathers a
+        ZeRO state, rank 0 writes."""
+        opt_state = self.optimizer.state_dict()
+        if self.is_writer:
+            save_training_state(save_dir, "model", self.model.state_dict(), opt_state,
+                                epoch=epoch)
 
     def _end_epoch(self, epoch: int, train_err: float) -> None:
         """Called after each epoch's scheduler step, before its evaluation."""
@@ -511,7 +617,7 @@ class Trainer:
                 warnings.warn(f"warm_start_opt=True but the donor optimizer state under {src} "
                               f"does not match this run's optimizer ({e}); continuing with a "
                               "fresh state")
-        if self.verbose:
+        if self.verbose and self.is_writer:
             print(f"warm-starting params from {src}/{name} (source epoch {src_epoch}, "
                   f"optimizer state {'loaded' if opt_state is not None else 'fresh'})")
 
@@ -524,7 +630,7 @@ class Trainer:
             self.optimizer.load_state_dict(opt_state)
         if epoch is not None:
             self.start_epoch = epoch + 1
-        if self.verbose:
+        if self.verbose and self.is_writer:
             print(f"resuming from {src} at epoch {self.start_epoch}")
 
     def _prepare_save_dir(self, save_dir, saving: bool, save_best, resume_from_dir) -> float:
@@ -536,13 +642,13 @@ class Trainer:
             manifest = read_manifest(resume_from_dir, tolerate_damage=True) or {}
             if manifest.get("best_key") == save_best:
                 best_metric = float(manifest.get("best_metric", float("inf")))
-        elif resume_from_dir is None and save_dir is not None and saving:
+        elif resume_from_dir is None and save_dir is not None and saving and self.is_writer:
             # a fresh run into a reused save_dir: a stale manifest must not
             # carry its best_metric or epoch into this run's saves
             stale = Path(save_dir) / "manifest.json"
             if stale.exists():
                 stale.unlink()
-        if saving:
+        if saving and self.is_writer:
             # architecture sidecars, so that the weights rebuild without the
             # training script (scripts/serve_model.py, models.from_checkpoint)
             try:
@@ -597,11 +703,16 @@ class Trainer:
                     and hasattr(dp, "format_rollout_batch") and "output_fields" in batch):
                 # a trajectory batch in the_well's layout
                 batch = dp.format_rollout_batch(self._put(dict(batch)))
-            bsz = len(batch["x"]) if "x" in batch else len(next(iter(batch.values())))
+            bsz = getattr(batch, "global_batch_size", 0) or (
+                len(batch["x"]) if "x" in batch else len(next(iter(batch.values()))))
             if mode == "single_step":
                 vals = eval_step(self._put(batch))
             else:
                 vals = self._eval_autoregressive(self._put(batch), eval_losses, max_steps)
+                if self.mesh is not None:
+                    vals = {k: comm.reduce_value(v, self.mesh.data_group,
+                                                 getattr(eval_losses[k], "reduction", "sum"))
+                            for k, v in vals.items()}
             for k, v in vals.items():
                 totals[k] = totals[k] + v if k in totals else v.double()
             n_samples += bsz

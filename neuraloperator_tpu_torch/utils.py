@@ -1,22 +1,34 @@
-"""Small shared utilities (port of ``count_model_params``,
-``validate_scaling_factor`` and ``compute_explained_variance`` of
-``neuraloperator_tpu/utils.py``)."""
+"""Small shared utilities (port of ``neuraloperator_tpu/utils.py``):
+parameter counts, the scaling-factor check, the radial energy spectrum,
+ranks, the repository root and a FLOP count.
+
+The JAX module's wandb helpers are not ported (``wandb`` is out of scope).
+``count_flops`` counts with ``torch.utils.flop_counter.FlopCounterMode``
+where the JAX function asks XLA's cost analysis.
+"""
 
 import math
+from pathlib import Path
 from typing import List, Optional, Union
 
+import numpy as np
 import torch
 
 Number = Union[int, float]
 
 
+def count_tensor_params(tensor, dims=None) -> int:
+    """Real parameters in ``tensor`` (over the listed ``dims`` only, when
+    given); a complex entry counts twice."""
+    shape = tensor.shape if dims is None else [tensor.shape[d] for d in dims]
+    is_complex = tensor.is_complex() if torch.is_tensor(tensor) else np.iscomplexobj(tensor)
+    return math.prod(shape) * (2 if is_complex else 1)
+
+
 def count_model_params(model: torch.nn.Module) -> int:
     """Total real parameter count of ``model``; a complex entry counts twice,
     as in the JAX package."""
-    return sum(
-        math.prod(p.shape) * (2 if p.is_complex() else 1)
-        for _, p in model.named_parameters()
-    )
+    return sum(count_tensor_params(p) for _, p in model.named_parameters())
 
 
 def validate_scaling_factor(
@@ -59,4 +71,61 @@ def compute_explained_variance(frequency_max: int, s) -> float:
     return float(torch.sum(s[:frequency_max] ** 2) / total)
 
 
-__all__ = ["compute_explained_variance", "count_model_params", "validate_scaling_factor"]
+def spectrum_2d(signal, n_observations: int, normalize: bool = True) -> torch.Tensor:
+    """Radial energy spectrum of a (T, s, s) signal (any shape of T * s * s
+    entries): the squared modulus of its 2-D FFT (``rfft2`` when not
+    ``normalize``), shifted, averaged over T and summed over the rings of
+    integer radius 1..s/2; float64, as the JAX function's numpy sums."""
+    signal = torch.as_tensor(signal)
+    s = n_observations
+    signal = signal.reshape(signal.shape[0], s, s)
+    if normalize:
+        spectrum = torch.fft.fft2(signal)
+    else:
+        spectrum = torch.fft.rfft2(signal, s=(s, s), norm="backward")
+    spectrum = torch.fft.fftshift(spectrum, dim=(-2, -1))
+    sq = (spectrum.real ** 2 + spectrum.imag ** 2).mean(dim=0).cpu().numpy()
+    k_max = s // 2
+    idx = np.indices((s, s)) - k_max
+    radius = np.sqrt(idx[0] ** 2 + idx[1] ** 2).astype(np.int64)
+    out = np.zeros(k_max)
+    for k in range(1, k_max + 1):
+        out[k - 1] = sq[radius == k].sum()
+    return torch.from_numpy(out)
+
+
+def compute_rank(tensor) -> torch.Tensor:
+    """The matrix rank (``torch.linalg.matrix_rank``)."""
+    return torch.linalg.matrix_rank(torch.as_tensor(tensor))
+
+
+def compute_stable_rank(tensor) -> torch.Tensor:
+    """The stable rank ``||A||_F^2 / ||A||_2^2`` of ``tensor`` flattened to
+    (first dim, rest)."""
+    a = torch.as_tensor(tensor)
+    a = a.reshape(a.shape[0], -1)
+    return torch.linalg.matrix_norm(a, "fro") ** 2 / torch.linalg.matrix_norm(a, 2) ** 2
+
+
+def get_project_root() -> Path:
+    """The repository's root directory (the one holding this package)."""
+    return Path(__file__).parent.parent
+
+
+def count_flops(fn, *args, **kwargs) -> dict:
+    """FLOPs of one call ``fn(*args, **kwargs)``, counted by
+    ``torch.utils.flop_counter.FlopCounterMode`` (matmuls, convolutions and
+    their backward, as torch's counter formulas count them; a complex
+    matmul counted as its real ones where the call makes them real).
+    ``{"flops": n, "bytes_accessed": nan}``: the JAX function's keys, the
+    second not counted here."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args, **kwargs)
+    return {"flops": float(counter.get_total_flops()), "bytes_accessed": float("nan")}
+
+
+__all__ = ["compute_explained_variance", "compute_rank", "compute_stable_rank",
+           "count_flops", "count_model_params", "count_tensor_params", "get_project_root",
+           "spectrum_2d", "validate_scaling_factor"]

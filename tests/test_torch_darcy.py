@@ -206,9 +206,39 @@ def test_the_entry_point_matches_the_jax_script(files, monkeypatch, capsys):
     assert got["train_err"] < 1e3 and all(np.isfinite(v) for v in got.values())
 
 
-def test_distribution_is_not_ported():
-    with pytest.raises(NotImplementedError, match="distribution"):
-        tscript.main(["--distributed.use_distributed", "true", "--device", "cpu"])
+_RUN_IN_A_FRESH_PROCESS = """
+import json, sys
+from pathlib import Path
+import torch
+torch.set_num_threads(1)
+from neuraloperator_tpu_torch.data.datasets import darcy
+from neuraloperator_tpu_torch.scripts import train_darcy
+darcy.DATA_ROOT = Path(sys.argv[1])
+print("METRICS " + json.dumps(train_darcy.main(sys.argv[2:])))
+"""
+
+
+def test_distribution_is_not_ported(files):
+    """``--distributed.use_distributed true`` is ported: the script joins a
+    gloo world of one (a fresh process, so this one stays outside
+    ``torch.distributed``) and trains to the same metrics, to the bit, as
+    without the flag (an all-reduce over one rank is a copy)."""
+    import json
+    import subprocess
+
+    runs = []
+    for extra in ([], ["--distributed.use_distributed", "true"]):
+        done = subprocess.run(
+            [sys.executable, "-c", _RUN_IN_A_FRESH_PROCESS, str(files / "port"), *ARGS,
+             "--device", "cpu", *extra],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+        assert done.returncode == 0, done.stderr[-2000:]
+        runs.append(json.loads(re.findall(r"^METRICS (.*)$", done.stdout, re.M)[-1]))
+    plain, distributed = runs
+    assert set(plain) == set(distributed)
+    for k, v in plain.items():
+        if "time" not in k:
+            assert distributed[k] == v, k
 
 
 def test_batch_norm_models_are_refused_as_the_jax_trainer_refuses_them(files):

@@ -142,6 +142,15 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/scripts/test_from_config.py",
         "neuraloperator_tpu_torch/scripts/merge_ns_train_data.py",
         "neuraloperator_tpu_torch/scripts/compress_checkpoint.py",
+        "neuraloperator_tpu_torch/parallel/__init__.py",
+        "neuraloperator_tpu_torch/parallel/mesh.py",
+        "neuraloperator_tpu_torch/parallel/comm.py",
+        "neuraloperator_tpu_torch/parallel/zero.py",
+        "neuraloperator_tpu_torch/parallel/distributed_fft.py",
+        "neuraloperator_tpu_torch/parallel/launch.py",
+        "neuraloperator_tpu_torch/parallel/distributed_sht.py",
+        "neuraloperator_tpu_torch/parallel/distributed_gno.py",
+        "neuraloperator_tpu_torch/parallel/pipeline.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()
@@ -211,6 +220,14 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card):
                                             np.zeros((1, 1, 1, 8, 8), np.float32), 1)
     served = CompiledForward(model, torch.zeros(1, 1, 8, 8), device="cpu")
     assert served(torch.zeros(1, 1, 8, 8)).device.type == "cpu"
+    # the mesh and setup's distributed path default to the card too
+    from neuraloperator_tpu_torch.parallel import mesh
+    from neuraloperator_tpu_torch.training.setup import setup
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.init(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup(model_parallel_size=1)
 
 
 def _new_entry_points():

@@ -120,9 +120,19 @@ def test_patcher_reads_the_padding_of_its_last_input():
 
 
 def test_distribution_is_refused():
-    for kwargs in ({"use_distributed": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP: distribution"):
-            MultigridPatching2D(levels=1, **kwargs)
+    """Distribution is ported (tests/test_torch_distributed_fft.py scatters the
+    patches over two model ranks): without a mesh, or at model size 1, the
+    patches stay whole on the rank, as JAX's stay on one device."""
+    from types import SimpleNamespace
+
+    x, y = _field(1, (2, 1, 16, 16)), _field(2, (2, 1, 16, 16))
+    plain = MultigridPatching2D(levels=1, padding_fraction=0.125)
+    want = plain.patch(torch.from_numpy(x), torch.from_numpy(y))[0]
+    one_rank = SimpleNamespace(shape={"data": 1, "model": 1})
+    for kwargs in ({"use_distributed": True}, {"use_distributed": True, "mesh": one_rank}):
+        patcher = MultigridPatching2D(levels=1, padding_fraction=0.125, **kwargs)
+        assert not patcher.splits_over_model
+        _bits(patcher.patch(torch.from_numpy(x), torch.from_numpy(y))[0], want)
 
 
 def test_patching_transforms_match_jax():

@@ -153,8 +153,12 @@ def test_int8_serving_matches_jax(jax_pallas):
         assert _rel_l2(got.numpy(), np.asarray(jserved(jnp.asarray(x)))) <= TOL
     with pytest.raises(ValueError, match="unsupported quantize='int4'"):
         serving.CompiledForward(model, example, quantize="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution"):
-        serving.CompiledForward(model, example, mesh=object(), device="cpu")
+    # a mesh is ported (tests/test_torch_mesh.py); its buckets must split
+    from types import SimpleNamespace
+
+    with pytest.raises(ValueError, match="not divisible by the 2 data ranks"):
+        serving.CompiledForward(model, example, mesh=SimpleNamespace(shape={"data": 2}),
+                                device="cpu", quantize="int8")
 
 
 @pytest.mark.parametrize("polymorphic", [True, False], ids=["symbolic-batch", "fixed-shape"])

@@ -119,8 +119,13 @@ def test_compiled_forward_refuses_what_it_cannot_serve():
     with pytest.raises(ValueError, match="not a compiled bucket"):
         served.latency_probe(batch_size=3)
     assert served.latency_probe(batch_size=2, iters=2) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CompiledForward(model, torch.from_numpy(example), device="cpu", mesh=object())
+    # a mesh is ported (tests/test_torch_mesh.py serves over two ranks); its
+    # buckets must split over the data ranks
+    from types import SimpleNamespace
+
+    with pytest.raises(ValueError, match=r"buckets \[1\] not divisible by the 2 data ranks"):
+        CompiledForward(model, torch.from_numpy(example), device="cpu",
+                        mesh=SimpleNamespace(shape={"data": 2, "model": 1}))
     # quantize="int8" is ported (tests/test_torch_quantize_export.py holds it to JAX)
     int8 = CompiledForward(model, torch.from_numpy(example), batch_sizes=(2,), device="cpu",
                            quantize="int8")

@@ -158,10 +158,35 @@ def _same(got, want):
         np.testing.assert_allclose(got[k], want[k], rtol=TOL, err_msg=k)
 
 
-def test_unported_options_raise():
-    # --opt.mixed_precision is ported (tests/test_torch_mixed_precision.py runs
-    # it), and so are --opt.opt_state factored8, --opt.stochastic_rounding and
-    # --opt.ema_decay (tests/test_torch_optimizer_options.py runs them), and so
-    # is --patching.levels (tests/test_torch_patching.py runs it)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tscript.main(["--distributed.use_distributed", "true", "--device", "cpu"])
+_RUN_IN_A_FRESH_PROCESS = """
+import sys
+from pathlib import Path
+import torch
+torch.set_num_threads(1)
+from neuraloperator_tpu_torch.data.datasets import navier_stokes
+from neuraloperator_tpu_torch.scripts import train_navier_stokes
+navier_stokes.DATA_ROOT = Path(sys.argv[1])
+train_navier_stokes.main(sys.argv[2:])
+"""
+
+
+def test_unported_options_raise(tmp_path):
+    """No option of the script is left unported: --opt.mixed_precision
+    (tests/test_torch_mixed_precision.py), --opt.opt_state factored8,
+    --opt.stochastic_rounding and --opt.ema_decay
+    (tests/test_torch_optimizer_options.py), --patching.levels
+    (tests/test_torch_patching.py) and --distributed.use_distributed
+    (tests/test_torch_mesh.py, two ranks against one process) all run. With
+    the mesh the flag builds, the staged dataset is refused as the JAX
+    Trainer refuses it (a fresh process: this one stays outside
+    ``torch.distributed``)."""
+    import subprocess
+
+    jns.generate_navier_stokes_files(tmp_path, n_train=16, n_test=8, res=16, T=0.05, seed=3)
+    done = subprocess.run(
+        [sys.executable, "-c", _RUN_IN_A_FRESH_PROCESS, str(tmp_path), *ARGS,
+         "--opt.n_epochs", "1", "--distributed.use_distributed", "true", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert done.returncode != 0
+    assert "ValueError: device_dataset is a single-device path" in done.stderr, \
+        done.stderr[-2000:]

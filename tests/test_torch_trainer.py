@@ -234,10 +234,13 @@ def test_unported_options_raise():
     # so is stochastic_rounding (tests/test_torch_optimizer_options.py)
     assert Trainer(model=model, n_epochs=1, device="cpu",
                    stochastic_rounding=True).sr_generator is not None
-    for option in ({"mesh": object()}, {"use_distributed": True}, {"zero_sharding": True},
-                   {"wandb_log": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(model=model, n_epochs=1, device="cpu", **option)
+    # so are the mesh, use_distributed and zero_sharding (tests/test_torch_mesh.py,
+    # tests/test_torch_zero.py): without a current mesh, use_distributed trains
+    # on one device, as the JAX Trainer does
+    assert Trainer(model=model, n_epochs=1, device="cpu", use_distributed=True,
+                   zero_sharding=True).mesh is None
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(model=model, n_epochs=1, device="cpu", wandb_log=True)
     trainer = Trainer(model=model, n_epochs=1, device="cpu")
     loader = DataLoader(TensorDataset(*_pairs(5, 2)), 2)
     opt = build_optimizer(_opt_cfg("full"))

@@ -624,8 +624,14 @@ def test_prefetch_loader_raises_the_worker_error_after_its_batches():
     assert len(seen) == 1
     with pytest.raises(ValueError):
         PrefetchLoader([], depth=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP: distribution"):
-        PrefetchLoader([], mesh=object(), device="cpu")
+    # with a mesh, each batch is the data rank's slice (tests/test_torch_mesh.py
+    # runs it on two ranks); here a stand-in mesh of 2 data ranks, rank 1
+    from types import SimpleNamespace
+
+    mesh = SimpleNamespace(shape={"data": 2, "model": 1}, data_rank=1,
+                           device=torch.device("cpu"))
+    (batch,) = list(PrefetchLoader([{"x": np.arange(4)}], mesh=mesh))
+    assert batch["x"].tolist() == [2, 3] and batch.global_batch_size == 4
 
 
 def test_prefetch_loader_stopped_early_ends_its_worker():
