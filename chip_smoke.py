@@ -15,8 +15,9 @@ Phases, each printed with its elapsed seconds as it goes:
    f32 and bf16; at the Darcy recipe's, phase 15; at UNO's widest layer,
    phase 17; K2/K3 at UQNO's batch, phase 18; K1-K3 at the FNO-3D's and
    the multi-variable FNO's, phase 20; at the Burgers scripts' three,
-   phase 21; at the GNO family's two, phase 22; at OTNO's, phase 23), and
-   times the kernel,
+   phase 21; at the GNO family's two, phase 22; at OTNO's, phase 23; at
+   the model-sharded flagship's out-channel slice, 64 x 32 channels over
+   2112 modes at batch 8, phase 25), and times the kernel,
    the plain version and one library
    call on the device (``_timing.device_ms``: the launches queued behind a
    device-side wait, so the CUDA events do not time the host's enqueue
@@ -304,7 +305,8 @@ Phases, each printed with its elapsed seconds as it goes:
    steps to 2 and its runs to the first 400 training pairs (CODANO's to
    200; they were 1000, 1000 and 400), phase 9's trajectories at 256² and
    512² from 6 and 4 to 3 and 2, phases 22 and 23's profiles from 10 steps
-   to 5, phase 15 from 5 epochs to 3, phase 18 from 30 + 30 epochs to
+   to 5, phase 15 from 5 epochs to 3 (and to 2 for phase 25's model axis),
+   phase 18 from 30 + 30 epochs to
    10 + 10, phase 8's and phase 12's CPU answers to the first two of the
    six request groups, and the card-against-CPU pairs of phases 5 and 8 from 32 to 16;
    the exported artifacts of phases 12 and 14 share one fresh process,
@@ -325,7 +327,19 @@ Phases, each printed with its elapsed seconds as it goes:
    flagship against one rank's step on the 8 rows (the loss, and every
    gradient within STEP_GRAD_TOL against the larger of its norm and 1% of
    the whole gradient's), ZeRO against replicated to the bit, each rank's
-   step ms and peak memory with and without ZeRO, ZeRO's no higher. Gloo runs no
+   step ms and peak memory with and without ZeRO, ZeRO's no higher; (d) the
+   model axis: the same two ranks (one spawn for (c) and (d)) at mesh
+   (data 1, model 2), each holding its out-channel slice of the four spectral
+   weights (half of their 69.2M values), one Trainer step of the seeded
+   flagship on the 8 rows held to one rank's whole step as (c) is, K1-K3
+   launched once per layer at the slice's shape (B=8, I=64, O=32, M=2112;
+   the plans printed), each rank's step ms and peak memory beside a whole
+   step's in the same process and (c)'s; then 2 steps, an async save of
+   the orbax counterpart (``save_training_state_orbax`` over
+   ``torch.distributed.checkpoint``), a restore into fresh modules and
+   optimizer and 1 step, equal to the bit to 3 uninterrupted steps; and a
+   msgpack save at model size 2 that this process (a world of one) reads
+   to the bit of the gathered slices. Gloo runs no
    ``all_to_all`` and no point-to-point send on CUDA tensors, so the sharded
    FFT (``DistributedSpectralConv2d``) and the halo exchange are held on the
    CPU only (``tests/test_torch_distributed_fft.py``);
@@ -580,17 +594,19 @@ TFNO_FORWARD_TOL = 1e-4
 # the data generated on the host by the port's load_darcy_flow_small, cut to
 # DARCY_EPOCHS epochs. Its contraction: 24 x 24 channels over 16 x 9 modes
 DARCY_CHANNELS, DARCY_MODES, DARCY_EVAL_BATCH = 24, 16 * 9, 16
-# (cut for the script's time)
-DARCY_EPOCHS = 3
+# (cut for the script's time: from 5 epochs to 3, then to 2)
+DARCY_EPOCHS = 2
 # The evaluations after the cut, within twice the JAX package's own figures
 # for the same cut on the same generated files: its scripts/train_darcy.py on
-# the CPU, 3 epochs from the seed-0 files (1000 + 100 + 100 pairs, which the
-# port's generator writes to the bit), read 16_l2 0.09242, 16_h1 0.12104,
-# 32_l2 0.10870, 32_h1 0.30638 (its Trainer's PRNGKey(0) init). The port
-# starts from its own seeded init, and a short run moves by some 10% from
-# epoch to epoch; an untrained model reads about 1.
-DARCY_BOUNDS = {"16_l2": 2 * 0.09242, "16_h1": 2 * 0.12104,
-                "32_l2": 2 * 0.10870, "32_h1": 2 * 0.30638}
+# the CPU, 2 epochs from the seed-0 files (1000 + 100 + 100 pairs, which the
+# port's generator writes to the bit), read 16_l2 0.11112, 16_h1 0.13574,
+# 32_l2 0.14391, 32_h1 0.30092 (its Trainer's PRNGKey(0) init; the same
+# procedure at 3 epochs gives back the 3-epoch figures 0.09242, 0.12104,
+# 0.10870 and 0.30638 to the digit). The port starts from its own seeded
+# init, and a short run moves by some 10% from epoch to epoch; an untrained
+# model reads about 1.
+DARCY_BOUNDS = {"16_l2": 2 * 0.11112, "16_h1": 2 * 0.13574,
+                "32_l2": 2 * 0.14391, "32_h1": 2 * 0.30092}
 DARCY_PROFILE_STEPS = 10
 # the options phase: each new layer option of the FNO family at the Darcy
 # width (16x16 modes, hidden 24, 4 layers) on a batch of 8 at 16², card
@@ -850,6 +866,9 @@ OPTION_STEPS, OPTION_RES, OPTION_MODES = 3, 32, [16, 16]
 # DIST_TIMEOUT_S
 DIST_PAIRS, DIST_TESTS, DIST_RANKS, DIST_TIMED_STEPS = 200, 32, 2, 3
 DIST_TIMEOUT_S = 180
+# (d): the model axis at mesh (data 1, model DIST_MODEL_SIZE) on two ranks
+# sharing the card; the resume check's steps before its save and after it
+DIST_MODEL_SIZE, DIST_RESUME_STEPS = 2, (2, 1)
 DIST_FLAGS = [
     "--data.n_train", str(DIST_PAIRS), "--data.train_resolution", "128",
     "--data.n_tests", f"[{DIST_TESTS}]", "--data.test_resolutions", "[128]",
@@ -5355,11 +5374,248 @@ def dist_rank_step(rank: int, world: int, x, y, state, loss_one, grads_one) -> d
     return out
 
 
+def _device_memory(device: torch.device, reset: bool = False) -> tuple:
+    """(peak, resident) of this process's allocations on ``device`` in MiB
+    (after a synchronize), the peak reset after reading when ``reset``;
+    zeros on the CPU (the rehearsal of the rank functions)."""
+    if device.type != "cuda":
+        return 0.0, 0.0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return peak, torch.cuda.memory_allocated() / 2**20
+
+
+def dist_model_rank(rank: int, world: int, meta: dict, device: str, x, y, state, loss_one,
+                    grads_one, save_root: str) -> dict:
+    """(25d) one rank of two at mesh (data 1, model 2): the model built from
+    ``meta`` with ``state``, whole and then sharded by the Trainer, one step
+    on the 8 rows each (the whole one is this process's baseline peak); the
+    sharded step's loss and gathered gradients against one rank's whole step
+    (``loss_one``, ``grads_one``), its launches and their shapes, the
+    spectral values this rank holds, DIST_TIMED_STEPS timed steps; then the
+    resume check through the orbax counterpart (async) and a msgpack save
+    at model size 2 under ``save_root``. ``device`` is "cuda" on the card."""
+    import gc
+
+    from neuraloperator_tpu_torch.data.transforms import load_data_processor
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.models import model_from_metadata
+    from neuraloperator_tpu_torch.ops import spectral_contraction as tsc
+    from neuraloperator_tpu_torch.parallel import mesh as mesh_lib
+    from neuraloperator_tpu_torch.training import (
+        Trainer,
+        build_optimizer,
+        load_training_state_orbax,
+        save_training_state,
+        save_training_state_orbax,
+    )
+
+    started = time.time()
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+        device = torch.device("cuda", 0)
+    processor = load_data_processor(FLAGSHIP)
+    batch = [{"x": x, "y": y}]
+    out = {"backend": torch.distributed.get_backend(), "started": started}
+
+    def flagship():
+        model = model_from_metadata(meta, device=device)
+        model.load_state_dict(state)
+        return model
+
+    # a whole step without a mesh: the baseline peak of this process (and
+    # what the step leaves allocated: parameters, gradients, state)
+    gc.collect()
+    model = flagship()
+    _device_memory(device, reset=True)
+    whole = Trainer(model=model, n_epochs=1, data_processor=processor, device=device)
+    whole.train(batch, {}, build_optimizer(OPT, 1), training_loss=H1Loss(d=2))
+    out["whole_peak_mib"], out["whole_resident_mib"] = _device_memory(device)
+    del model, whole
+    gc.collect()
+
+    mesh = mesh_lib.init(DIST_MODEL_SIZE, device=device)
+    out["mesh"] = repr(mesh)
+    model = flagship()
+    shapes = []
+    launch = tsc._launch
+
+    def recording(kind, a, b, out_shape, dims):
+        shapes.append((kind, tuple(dims)))
+        return launch(kind, a, b, out_shape, dims)
+
+    _device_memory(device, reset=True)
+    reset_launches()
+    tsc._launch = recording
+    try:
+        trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device=device,
+                          mesh=mesh)
+        metrics = trainer.train(batch, {}, build_optimizer(OPT, 1), training_loss=H1Loss(d=2))
+    finally:
+        tsc._launch = launch
+    out["peak_mib"], out["resident_mib"] = _device_memory(device)
+    out["launches"] = read_launches()
+    out["shapes"] = sorted(set(shapes))
+    grads = mesh_lib.gather_state_dict(
+        model, {n: p.grad.detach() for n, p in model.named_parameters()})
+    errs = grad_errors({n: g.float().cpu() for n, g in grads.items()}, grads_one)
+    worst = max(errs, key=errs.get)
+    sharded = model.model_parallel_params
+    held = dict(model.named_parameters())
+    out.update(loss_rel_err=abs(metrics["train_err"] - loss_one) / abs(loss_one),
+               grad_err_max=errs[worst], grad_worst=worst, sharded=sorted(sharded),
+               spectral_held=sum(held[n].numel() for n in sharded),
+               spectral_whole=sum(math.prod(s.shape) for s in sharded.values()),
+               params_held=sum(p.numel() for p in model.parameters()))
+    timed = trainer.train(batch * DIST_TIMED_STEPS, {}, build_optimizer(OPT, DIST_TIMED_STEPS),
+                          training_loss=H1Loss(d=2))
+    out["step_ms"] = 1e3 * timed["epoch_time"] / DIST_TIMED_STEPS
+    # a dense weight's slice (2, I, O, m1, m2): the shape K1-K3 run at
+    w = held[sorted(sharded)[0]]
+    B, I, O, M = len(x), w.shape[1], w.shape[2], math.prod(w.shape[3:])
+    if device.type == "cuda":
+        def operand(*shape):
+            return torch.zeros(shape, device=device)
+
+        xs, ws, gs = operand(B, I, M), operand(I, O, M), operand(B, O, M)
+        out["plans"] = {"mode_contraction": tsc.mode_contraction_plan(xs, xs, ws, ws),
+                        "mode_contraction_dx": tsc.mode_contraction_plan(gs, gs, ws, ws,
+                                                                         dx=True),
+                        "mode_contraction_dw": tsc.mode_contraction_dw_plan(xs, xs, gs, gs)}
+    out["slice_shape"] = (B, I, O, M)
+    del trainer, model, grads, held
+    gc.collect()
+
+    # the resume check: the Trainer's step on a sharded model and its
+    # optimizer, 3 steps straight against 2, the async save, a restore into
+    # fresh modules and 1 step
+    def stepper():
+        model = flagship()
+        trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device=device,
+                          mesh=mesh)
+        mesh_lib.shard_params(model, mesh)
+        trainer.optimizer = build_optimizer(OPT, 1).bind(
+            model.named_parameters(), model_parallel=mesh_lib.model_parallel_layout(model))
+        step = trainer._build_train_step(H1Loss(d=2))
+        put = trainer._put(batch[0])
+        return model, trainer.optimizer, lambda: step(put, 1.0)
+
+    model, opt, step = stepper()
+    for _ in range(sum(DIST_RESUME_STEPS)):
+        step()
+    # each rank holds its own slices to the bit: compared where they are
+    straight = {k: v.clone() for k, v in model.state_dict().items()}
+    del model, opt, step
+    model, opt, step = stepper()
+    for _ in range(DIST_RESUME_STEPS[0]):
+        step()
+    root = Path(save_root)
+    t0 = time.perf_counter()
+    save_training_state_orbax(root / "dcp", model, opt, epoch=DIST_RESUME_STEPS[0] - 1,
+                              async_save=True)
+    out["dcp_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_training_state(root / "msgpack", "model", model, opt.state_dict(),
+                        epoch=DIST_RESUME_STEPS[0] - 1)
+    out["msgpack_save_s"] = time.perf_counter() - t0
+    saved = mesh_lib.gather_state_dict(model)  # every rank joins the gathers
+    if rank == 0:
+        out["saved"] = {k: v.cpu() for k, v in saved.items()}
+    del saved
+    del model, opt, step
+    model, opt, step = stepper()
+    t0 = time.perf_counter()
+    _, restored_opt, epoch = load_training_state_orbax(root / "dcp", model, opt)
+    out["dcp_load_s"] = time.perf_counter() - t0
+    for _ in range(DIST_RESUME_STEPS[1]):
+        step()
+    resumed = model.state_dict()
+    out.update(resume_epoch=epoch, resume_opt_in_place=restored_opt is opt,
+               resume_unequal=[n for n, v in straight.items() if not torch.equal(v, resumed[n])],
+               files=sorted(f.name for f in (root / "dcp" / "orbax").iterdir()),
+               work_s=time.time() - started)
+    return out
+
+
+def dist_ranks(rank: int, world: int, x, y, state, loss_one, grads_one,
+               save_root: str) -> dict:
+    """(25c, d) one rank of the two on the card: (c), then (d) in the same
+    process (one spawn for both)."""
+    data = dist_rank_step(rank, world, x, y, state, loss_one, grads_one)
+    model = dist_model_rank(rank, world, flagship_meta(), "cuda", x, y, state, loss_one,
+                            grads_one, save_root)
+    return {"c": data, "d": model}
+
+
+def model_axis(ranks: list, ranks_s: float, spawned: float, save_root: str,
+               replicated_peak_mib: float) -> dict:
+    """(25d) the checks of the two ranks at mesh (data 1, model 2)
+    (``dist_model_rank``), and the msgpack save read here, in a world of one."""
+    from neuraloperator_tpu_torch.models import model_from_metadata
+    from neuraloperator_tpu_torch.training import load_training_state
+
+    meta = flagship_meta()
+    n_layers = meta["init_kwargs"]["n_layers"]
+    template = model_from_metadata(meta, device="meta").state_dict()
+    read, _, epoch = load_training_state(Path(save_root) / "msgpack", "model", template,
+                                         device="cpu")
+    saved = ranks[0].pop("saved")
+    msgpack_unequal = [n for n, v in saved.items() if not torch.equal(v, read[n])]
+    want_launches = {"mode_contraction": n_layers, "mode_contraction_dx": n_layers,
+                     "mode_contraction_dw": n_layers}
+    per_rank = []
+    for r, got in enumerate(ranks):
+        got["start_s"] = got.pop("started") - spawned
+        per_rank.append(got)
+        B, I, O, M = got["slice_shape"]
+        want_shapes = [(kind, (B, I, O, M)) for kind in ("dw", "dx", "fwd")]
+        if not (got["loss_rel_err"] <= STEP_LOSS_TOL and got["grad_err_max"] <= STEP_GRAD_TOL):
+            raise AssertionError(f"distribution: (d) rank {r}'s step departs from one rank's "
+                                 f"whole step: {got}")
+        if not (2 * got["spectral_held"] == got["spectral_whole"] and len(got["sharded"])
+                == n_layers and O * DIST_MODEL_SIZE == I):
+            raise AssertionError(f"distribution: (d) rank {r} holds {got['spectral_held']} of "
+                                 f"{got['spectral_whole']} spectral values in {got['sharded']}")
+        if got["launches"] != want_launches or got["shapes"] != want_shapes:
+            raise AssertionError(f"distribution: (d) rank {r} launched {got['launches']} at "
+                                 f"{got['shapes']}, expected {want_launches} at {want_shapes}")
+        if (got["resume_unequal"] or got["resume_epoch"] != DIST_RESUME_STEPS[0] - 1
+                or not got["resume_opt_in_place"] or got["backend"] != "gloo"):
+            raise AssertionError(f"distribution: (d) rank {r}: the resume from the DCP save "
+                                 f"departs from {sum(DIST_RESUME_STEPS)} straight steps: {got}")
+    if msgpack_unequal or epoch != DIST_RESUME_STEPS[0] - 1:
+        raise AssertionError(f"distribution: (d) the msgpack save at model size 2 read in a "
+                             f"world of one differs: {msgpack_unequal[:5]}, epoch {epoch}")
+    log(f"distribution: (c) and (d): {DIST_RANKS} ranks on the card (gloo) in {ranks_s:.1f} "
+        f"s; (d) at model size {DIST_MODEL_SIZE}: each holds {per_rank[0]['spectral_held']} of "
+        f"{per_rank[0]['spectral_whole']} spectral values "
+        f"({4 * per_rank[0]['spectral_held'] / 1e6:.1f} of "
+        f"{4 * per_rank[0]['spectral_whole'] / 1e6:.1f} MB); the step against one rank's "
+        f"whole step: loss {[r['loss_rel_err'] for r in per_rank]}, gradients "
+        f"{[(r['grad_err_max'], r['grad_worst']) for r in per_rank]}; K1-K3 at (B, I, O, M) "
+        f"{per_rank[0]['slice_shape']}: {per_rank[0]['launches']}, plans "
+        f"{per_rank[0].get('plans')}; step ms {[r['step_ms'] for r in per_rank]}; peak MiB "
+        f"sharded {[r['peak_mib'] for r in per_rank]}, whole step in the same process "
+        f"{[r['whole_peak_mib'] for r in per_rank]}, (c)'s replicated "
+        f"{replicated_peak_mib:.1f}; resident after the step MiB sharded "
+        f"{[r['resident_mib'] for r in per_rank]}, whole "
+        f"{[r['whole_resident_mib'] for r in per_rank]}; the resume from the async DCP save "
+        f"equal to the bit to {sum(DIST_RESUME_STEPS)} straight steps (save s "
+        f"{[round(r['dcp_save_s'], 3) for r in per_rank]}, load s "
+        f"{[round(r['dcp_load_s'], 3) for r in per_rank]}, files {per_rank[0]['files']}); the "
+        f"msgpack save ({[round(r['msgpack_save_s'], 3) for r in per_rank]} s) read here to "
+        f"the bit ({len(saved)} leaves)")
+    return {"ranks": per_rank}
+
+
 def distribution() -> dict:
     """(25) the distribution phase: (a) train_navier_stokes with and without
     --distributed.use_distributed (NCCL, a world of one) to the bit, (b) the
     same under ZeRO to the bit, (c) two ranks sharing the card (gloo) against
-    one rank, replicated and under ZeRO."""
+    one rank, replicated and under ZeRO, (d) two ranks at model size 2."""
     import torch.distributed as dist
 
     from neuraloperator_tpu_torch.data.transforms import load_data_processor
@@ -5412,10 +5668,18 @@ def distribution() -> dict:
     model = seeded_flagship("cuda", SEED + 7)
     state = {k: v.cpu() for k, v in model.state_dict().items()}
     loss_one, grads_one = one_step(model, load_data_processor(FLAGSHIP), x, y, "cuda")
+    save_root = tempfile.mkdtemp(prefix="chip-model-axis-")
     t1, spawned = time.perf_counter(), time.time()
-    ranks = run_ranks(dist_rank_step, DIST_RANKS, (x, y, state, loss_one, grads_one),
-                      timeout_s=DIST_TIMEOUT_S)
-    ranks_s = time.perf_counter() - t1
+    try:
+        both = run_ranks(dist_ranks, DIST_RANKS,
+                         (x, y, state, loss_one, grads_one, save_root),
+                         timeout_s=DIST_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t1
+        axis = model_axis([r["d"] for r in both], ranks_s, spawned, save_root,
+                          both[0]["c"]["peak_mib"])
+    finally:
+        shutil.rmtree(save_root, ignore_errors=True)
+    ranks = [r["c"] for r in both]
     want_launches = {"mode_contraction": n_layers, "mode_contraction_dx": n_layers,
                      "mode_contraction_dw": n_layers}
     per_rank = []
@@ -5435,8 +5699,8 @@ def distribution() -> dict:
                                  f"{got['zero_launches']}, expected {want_launches}")
         if got["backend"] != "gloo":
             raise AssertionError(f"distribution: (c) rank {r} ran on {got['backend']}")
-    log(f"distribution: (c) {DIST_RANKS} ranks on the card (gloo) in {ranks_s:.1f} s, one "
-        f"step of global batch {TRAIN_BATCH} against one rank's: {per_rank}")
+    log(f"distribution: (c) {DIST_RANKS} ranks on the card (gloo), one step of global "
+        f"batch {TRAIN_BATCH} against one rank's: {per_rank}")
     # end the world of one: nothing after this phase runs distributed
     dist.destroy_process_group()
     phase_s = time.perf_counter() - t0
@@ -5451,7 +5715,8 @@ def distribution() -> dict:
                         "zero": zero["step_ms"]},
             "peak_mib": {"plain": plain["peak_mib"], "distributed": flagged["peak_mib"],
                          "zero": zero["peak_mib"]},
-            "two_ranks": per_rank, "two_ranks_s": ranks_s, "phase_s": phase_s}
+            "two_ranks": per_rank, "two_ranks_s": ranks_s, "model_axis": axis,
+            "phase_s": phase_s}
 
 
 def kernel_line(variants, paths) -> list:
@@ -5462,7 +5727,7 @@ def kernel_line(variants, paths) -> list:
     for name, spec in kernel_specs().items():
         own = [v for v in variants if v["name"] == name]
         main = next(v for v in own if v["dtype"] == "float32" and v["batch"] == TRAIN_BATCH
-                    and v["shape"]["M"] == MODES)
+                    and v["shape"]["M"] == MODES and v["shape"]["O"] == CHANNELS)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -5563,6 +5828,12 @@ def main() -> None:
     variants += [dict(name=name, recipe="patching", **check_kernel(name, PATCH_BATCH,
                                                                    torch.float32))
                  for name in kernel_specs()]
+    # the model-sharded flagship's: each rank's out-channel slice, 64 x 32
+    # channels over the 2112 modes at the step's batch (phase 25d)
+    variants += [dict(name=name, recipe="model_axis",
+                      **check_kernel(name, TRAIN_BATCH, torch.float32,
+                                     channels=(CHANNELS, CHANNELS // DIST_MODEL_SIZE)))
+                 for name in kernel_specs()]
     patched_eval_k1 = check_kernel("mode_contraction", PATCH_EVAL_BATCH, torch.float32,
                                    timed=False)
     k3 = {v["dtype"]: v["ms"] for v in variants if v["name"] == "mode_contraction_dw"
@@ -5607,6 +5878,7 @@ def main() -> None:
     patching_run = patching(recipe_run)
     distribution_run = distribution()
 
+    axis_ranks = distribution_run["model_axis"]["ranks"]
     kernels = kernel_line(variants, {"serve": served, "eval": evaluated, "train": trained,
                                      "recipe": recipe_run, "mixed": mixed_run,
                                      "superres": superres_run, "rollout": rollout_run,
@@ -5669,7 +5941,9 @@ def main() -> None:
         f"recipe train_err {patching_run['train_err']}, step ms {patching_run['step_ms']}, "
         f"peak {patching_run['peak_mib']:.0f} MiB; distribution step ms "
         f"{distribution_run['step_ms']}, two ranks "
-        f"{[(r['step_ms'], r['peak_mib'], r['zero_peak_mib']) for r in distribution_run['two_ranks']]}")
+        f"{[(r['step_ms'], r['peak_mib'], r['zero_peak_mib']) for r in distribution_run['two_ranks']]}"
+        f", model axis (step ms, peak MiB, whole step's peak) "
+        f"{[(r['step_ms'], r['peak_mib'], r['whole_peak_mib']) for r in axis_ranks]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

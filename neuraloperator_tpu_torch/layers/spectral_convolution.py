@@ -98,9 +98,13 @@ class SpectralConv(nn.Module):
     n_modes=None)`` takes the JAX layer's per-call overrides.
 
     ``model_group`` (a ``parallel.comm.SharedGroup``, set by
-    ``parallel.mesh.shard_params``): the process group over which a dense
-    weight's contraction is split by out channels, each rank contracting
-    with its slice and the outputs all-gathered.
+    ``parallel.mesh.shard_params``): the process group over which the
+    weight is held by out channels: the parameter holding them (the dense
+    ``w_weight``, a factorized ``w_factor_1``) is this rank's slice, which
+    the contraction takes into this rank's out channels; the outputs are
+    all-gathered, and the other factors enter the group's region
+    (``copy_to_model_parallel_region``), so their gradients are summed
+    over it.
     """
 
     model_group = None
@@ -207,11 +211,13 @@ class SpectralConv(nn.Module):
         spec, factors = self.spec, self.factors()
         group = None if self.model_group is None else self.model_group.group
         if group is not None:
-            # this rank's out channels of the dense weight (in, out, modes...)
+            # the held factor is this rank's out channels of (in, out, modes...)
+            held = "weight" if spec.kind == "dense" else "factor_1"
             chunk = self.out_channels // dist.get_world_size(group)
-            start = dist.get_rank(group) * chunk
-            factors = {"weight": tuple(t.narrow(1, start, chunk) for t in factors["weight"])}
             spec = dataclasses.replace(spec, shape=(spec.shape[0], chunk, *spec.shape[2:]))
+            factors = {name: parts if name == held else
+                       tuple(copy_to_model_parallel_region(t, group) for t in parts)
+                       for name, parts in factors.items()}
         return spectral_conv_forward(
             x,
             spec,
@@ -269,10 +275,10 @@ def spectral_conv_forward(
     """Functional core: x (b, in, d1..dN), the weight's ``spec`` and its
     factors ``params`` (``{name: (re, im)}``).
 
-    With ``model_group``, ``params`` hold this rank's out channels of a
-    dense weight: the contraction's input enters the model-parallel region
-    (its gradient all-reduced over the group) and its output is
-    all-gathered along the channels before the inverse transforms.
+    With ``model_group``, ``params`` hold this rank's out channels of the
+    weight: the contraction's input enters the model-parallel region (its
+    gradient all-reduced over the group) and its output is all-gathered
+    along the channels before the inverse transforms.
 
     ``n_modes`` has the last dim already halved on real data
     (``halve_last_mode``); ``resolution_scaling_factor`` is one factor per

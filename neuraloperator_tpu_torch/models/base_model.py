@@ -198,10 +198,20 @@ def save_checkpoint(module: torch.nn.Module, save_folder, save_name: str) -> Pat
     ``{"params": ...}`` of the module's weights, in their dtypes) and the
     ``{save_name}_metadata.json`` sidecar: the JAX ``save_checkpoint``'s
     layout, which ``load_checkpoint`` and the JAX package's loaders read.
-    Returns the state file's path."""
-    save_arch_metadata(module, save_folder, save_name)
+    A model-sharded module (``parallel.mesh.shard_params``) is gathered to
+    its whole weights: every rank must call, rank 0 alone writes, and the
+    files are written when any rank's call returns. Returns the state
+    file's path."""
+    from ..parallel import mesh as mesh_lib
+
     path = Path(save_folder) / f"{save_name}_state_dict.msgpack"
-    write_msgpack(path, {"params": to_flax_params(module.state_dict())})
+    state = mesh_lib.gather_state_dict(module)
+    sharded = bool(getattr(module, "model_parallel_params", None))
+    if not sharded or torch.distributed.get_rank() == 0:
+        save_arch_metadata(module, save_folder, save_name)
+        write_msgpack(path, {"params": to_flax_params(state)})
+    if sharded:
+        torch.distributed.barrier()
     return path
 
 
@@ -209,16 +219,19 @@ def load_checkpoint(module: torch.nn.Module, save_folder, save_name: str) -> tor
     """Load ``{save_name}_state_dict.msgpack`` (``save_checkpoint``'s layout:
     the flax variables, parameters under ``"params"``) into ``module``.
 
-    Leaves are checked by name and shape and cast to the module's dtypes.
+    Leaves are checked by name and shape and cast to the module's dtypes;
+    a model-sharded module takes its slices of the whole weights.
     Returns ``module``.
     """
+    from ..parallel import mesh as mesh_lib
+
     variables = read_msgpack(Path(save_folder) / f"{save_name}_state_dict.msgpack")
     if not isinstance(variables, Mapping) or "params" not in variables:
         raise ValueError(f"{save_name}_state_dict.msgpack holds no 'params' tree")
     device = next(module.parameters()).device
-    module.load_state_dict(
-        convert_flax_params(variables["params"], module.state_dict(), device=device)
-    )
+    whole = convert_flax_params(variables["params"], mesh_lib.whole_template(module),
+                                device=device)
+    module.load_state_dict(mesh_lib.cut_state_dict(module, whole))
     return module
 
 

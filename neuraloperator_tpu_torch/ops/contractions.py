@@ -11,6 +11,9 @@ complex einsums over the factors (``complex_einsum``), XLA einsums there
 and ``torch.einsum`` here. ``contract_block`` dispatches as the JAX
 function does: the ``"reconstructed"`` implementation, or a dense weight,
 rebuilds the weight (``to_tensor``) and takes the dense contraction.
+A model-sharded layer (``parallel.mesh.shard_params``) passes its slice of
+the out-channel factor with the spec's out dim cut to match, so each
+contraction, dense or factorized, yields this rank's out channels alone.
 """
 
 from typing import Optional

@@ -75,8 +75,8 @@ def get_model_parallel_rank() -> int:
 
 
 class SharedGroup:
-    """A process group held by reference: a copy of the module holding it
-    shares it (a process group cannot be copied)."""
+    """A process group (or a ``Mesh`` of them) held by reference: a copy of
+    the module holding it shares it (a process group cannot be copied)."""
 
     __slots__ = ("group",)
 

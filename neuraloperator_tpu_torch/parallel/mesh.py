@@ -16,23 +16,29 @@ them. The world is laid out as JAX's ``reshape(dp, mp)``: a model group is
   (a :class:`ShardedBatch`, which remembers the global size);
   :func:`replicate` broadcasts a module's state from rank 0.
 * :func:`tp_param_specs` names, for each parameter, the dim the JAX
-  package shards over 'model' (or None); :func:`shard_params` makes each
-  dense spectral convolution contract with its model rank's out-channel
-  slice of the weight, its output all-gathered after the contraction
-  (``comm.copy_to_model_parallel_region`` before it,
-  ``comm.gather_from_model_parallel_region`` after it). The weight, its
-  gradient and its optimizer state stay whole on every rank, so the model
-  axis splits the contraction's work, not memory (every model here fits
-  one card): a slice would need model-group gathers in the checkpoint, the
-  optimizer's tree, the EMA and the gradient norm, where the JAX arrays
-  stay global. The gradient of each slice reaches only that slice of the
-  weight and is summed over the model group by the ``Trainer``.
+  package shards over 'model' (or None); :func:`shard_params` keeps only
+  this model rank's slice of each such parameter as the ``nn.Parameter``,
+  so the weight, its gradient and its optimizer state are split in memory
+  over the model group, as JAX's arrays are. A non-separable spectral
+  convolution whose out-channel factor is sliced (the dense ``w_weight``,
+  the CP, Tucker and TT ``w_factor_1``) contracts its slice into this
+  rank's out channels (``comm.copy_to_model_parallel_region`` before the
+  contraction, ``comm.gather_from_model_parallel_region`` after it, and
+  its other factors entered through ``copy_to``, so their gradients are
+  summed over the group); any other module holding a sliced parameter
+  (a separable or spherical convolution's weight, a scanned stack)
+  gathers it for each call (``gather_from``: the whole weight forward,
+  this rank's slice of its gradient backward).
+* :func:`gather_state_dict` all-gathers a sharded model's slices to the
+  whole ``state_dict`` (the JAX layout the files hold), and
+  :func:`cut_state_dict` cuts a whole one to this rank's slices;
+  :func:`whole_template` gives the whole shapes on the ``meta`` device.
 """
 
 import os
 from contextlib import contextmanager
 from datetime import timedelta
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -66,6 +72,21 @@ class Mesh:
         self.data_rank, self.model_rank = divmod(self.rank, mp)
         self.data_group, self.model_group = data_group, model_group
         self.device = device
+        self._device_mesh = None
+
+    def device_mesh(self):
+        """The ('data', 'model') ``DeviceMesh`` over this mesh's two groups
+        (``DeviceMesh.from_group``), made on the first call: the mesh the
+        checkpoint's ``DTensor`` leaves are placed on."""
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            layout = torch.arange(self.world_size).reshape(self.shape[DATA_AXIS],
+                                                           self.shape[MODEL_AXIS])
+            self._device_mesh = DeviceMesh.from_group(
+                [self.data_group, self.model_group], self.device.type, mesh=layout,
+                mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+        return self._device_mesh
 
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, rank={self.rank}, data_rank={self.data_rank}, "
@@ -200,11 +221,18 @@ def make_distributed_batch(batch: Mapping, mesh: Optional[Mesh] = None):
 
 @torch.no_grad()
 def replicate(module: torch.nn.Module, mesh: Optional[Mesh] = None) -> torch.nn.Module:
-    """Rank 0's parameters and buffers on every rank, overwritten in place."""
+    """Rank 0's parameters and buffers on every rank, overwritten in place;
+    a model-sharded parameter (:func:`shard_params`) takes the slice of
+    data rank 0 of its model rank."""
     mesh = mesh or _CURRENT_MESH
     if mesh is not None and mesh.world_size > 1:
-        for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, src=0)
+        sharded = getattr(module, "model_parallel_params", {})
+        for name, t in list(module.named_parameters()) + list(module.named_buffers()):
+            if name in sharded:
+                # data rank 0 of this model rank is global rank model_rank
+                dist.broadcast(t.data, src=mesh.model_rank, group=mesh.data_group)
+            else:
+                dist.broadcast(t.data, src=0)
     return module
 
 
@@ -254,31 +282,149 @@ def tp_param_specs(params, mesh: Mesh) -> Dict[str, Optional[int]]:
     return specs
 
 
-def shard_params(model: torch.nn.Module, mesh: Optional[Mesh] = None) -> torch.nn.Module:
-    """Split each dense spectral convolution's contraction over the model
-    group by out channels (see the module docstring). The names of the
-    weights so split are kept in ``model.model_parallel_params``; a
-    factorized or separable weight, or one whose out channels do not
-    divide, is contracted whole. Without a mesh, or at model size 1, the
-    model is left as it is."""
+class ShardedParam(NamedTuple):
+    """A parameter held as this model rank's slice: the sliced ``dim`` and
+    the whole parameter's ``shape``."""
+
+    dim: int
+    shape: Tuple[int, ...]
+
+
+def _out_channel_factor(module) -> Optional[Tuple[str, int]]:
+    """``(name, dim)`` of the factor holding a non-separable spectral
+    convolution's out channels, as it is stored (one layer, not a stack)."""
     from ..layers.spectral_convolution import SpectralConv
-    from .comm import SharedGroup
+    from ..tensor.factorized import factor_shapes
+
+    if not isinstance(module, SpectralConv) or module.separable:
+        return None
+    name, dim = ("weight", 2) if module.spec.kind == "dense" else (
+        "factor_1", 2 if module.spec.kind == "tt" else 1)
+    stored = getattr(module, f"w_{name}")
+    if stored.ndim != 1 + len(factor_shapes(module.spec)[name]):
+        return None
+    return f"w_{name}", dim
+
+
+def _gather_on_call(module: torch.nn.Module, dims: Dict[str, Tuple[int, int]], group) -> None:
+    """Give ``module`` each sliced parameter of ``dims`` (``{name: (dim,
+    ndim)}`` of the stored slice) whole for the length of each call: the
+    gathered tensor shadows the parameter as an instance attribute. A call
+    through ``torch.func.functional_call`` gathers the tensor it swapped in,
+    its sliced dim counted from the end (a scanned stack's layers lose the
+    leading axis)."""
+    from . import comm
+
+    def gather(mod, args):
+        for name, (dim, ndim) in dims.items():
+            t = mod._parameters[name]
+            mod.__dict__[name] = comm.gather_from_model_parallel_region(
+                t, dim - (ndim - t.ndim), group)
+
+    def release(mod, args, out):
+        for name in dims:
+            mod.__dict__.pop(name, None)
+
+    module.register_forward_pre_hook(gather)
+    module.register_forward_hook(release, always_call=True)
+
+
+def shard_params(model: torch.nn.Module, mesh: Optional[Mesh] = None) -> torch.nn.Module:
+    """Keep only this model rank's slice of every parameter
+    :func:`tp_param_specs` shards (see the module docstring). The sharded
+    names are kept in ``model.model_parallel_params`` (``{name:
+    ShardedParam(dim, whole shape)}``), the mesh in
+    ``model.model_parallel_mesh`` (a ``comm.SharedGroup``). A dim that does
+    not divide stays whole, as in JAX. Without a mesh, or at model size 1,
+    the model is left as it is (an empty ``model_parallel_params``); a
+    model already sharded is returned as it is."""
+    from . import comm
 
     mesh = mesh or _CURRENT_MESH
-    names = []
+    if getattr(model, "model_parallel_params", None):
+        return model
+    sharded: Dict[str, ShardedParam] = {}
     if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+        group = mesh.model_group
         specs = tp_param_specs(model, mesh)
-        for prefix, module in model.named_modules():
-            key = f"{prefix}.w_weight" if prefix else "w_weight"
-            if (isinstance(module, SpectralConv) and module.spec.kind == "dense"
-                    and not module.separable and specs.get(key) == 2):
-                module.model_group = SharedGroup(mesh.model_group)
-                names.append(key)
-    model.model_parallel_params = names
+        for prefix, module in list(model.named_modules()):
+            own = {}
+            for leaf, p in list(module.named_parameters(recurse=False)):
+                key = f"{prefix}.{leaf}" if prefix else leaf
+                dim = specs.get(key)
+                if dim is None:
+                    continue
+                sharded[key] = ShardedParam(dim, tuple(p.shape))
+                own[leaf] = (dim, p.ndim)
+                piece = comm.own_slice(p.detach(), dim, group)
+                module._parameters[leaf] = torch.nn.Parameter(piece, p.requires_grad)
+            if not own:
+                continue
+            out_factor = _out_channel_factor(module)
+            if out_factor is not None and own == {out_factor[0]: (out_factor[1],
+                                                                  own[out_factor[0]][1])}:
+                module.model_group = comm.SharedGroup(group)
+            else:
+                _gather_on_call(module, own, group)
+        model.model_parallel_mesh = comm.SharedGroup(mesh)
+    model.model_parallel_params = sharded
     return model
 
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "ShardedBatch", "get_data_parallel_size",
-           "get_mesh", "get_model_parallel_size", "init", "init_process_group", "local_slice",
-           "make_distributed_batch", "replicate", "shard_batch", "shard_params",
-           "tp_param_specs", "use_mesh"]
+def model_parallel_mesh(model) -> Optional[Mesh]:
+    """The mesh a model was sharded over (:func:`shard_params`), or None."""
+    held = getattr(model, "model_parallel_mesh", None)
+    return None if held is None else held.group
+
+
+def _sharding(model) -> Tuple[Dict[str, ShardedParam], object]:
+    sharded = getattr(model, "model_parallel_params", None) or {}
+    mesh = model_parallel_mesh(model)
+    return sharded, (None if mesh is None else mesh.model_group)
+
+
+def model_parallel_layout(model) -> Optional[Tuple[object, Dict[str, int]]]:
+    """``(model group, {name: sliced dim})`` of a sharded model, else None:
+    what an optimizer bound to its parameters needs to know."""
+    sharded, group = _sharding(model)
+    return (group, {n: s.dim for n, s in sharded.items()}) if sharded else None
+
+
+def gather_state_dict(model: torch.nn.Module, state: Optional[Mapping[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """The whole ``state_dict`` of a sharded model: each slice all-gathered
+    over the model group (every model rank must call it); the other entries
+    as they are. ``state`` (default ``model.state_dict()``) holds the slices."""
+    from . import comm
+
+    state = model.state_dict() if state is None else state
+    sharded, group = _sharding(model)
+    return {k: (comm.all_gather_along(v, sharded[k].dim, group) if k in sharded else v)
+            for k, v in state.items()}
+
+
+def cut_state_dict(model: torch.nn.Module,
+                   state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A whole ``state_dict`` cut to this model rank's slices of ``model``."""
+    from . import comm
+
+    sharded, group = _sharding(model)
+    return {k: (comm.own_slice(v, sharded[k].dim, group) if k in sharded else v)
+            for k, v in state.items()}
+
+
+def whole_template(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` at the whole shapes, on the ``meta`` device:
+    the template a file in the JAX layout is read against."""
+    sharded, _ = _sharding(model)
+    return {k: torch.empty(sharded[k].shape if k in sharded else v.shape, dtype=v.dtype,
+                           device="meta")
+            for k, v in model.state_dict().items()}
+
+
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "ShardedBatch", "ShardedParam", "cut_state_dict",
+           "gather_state_dict", "get_data_parallel_size", "get_mesh",
+           "get_model_parallel_size", "init", "init_process_group", "local_slice",
+           "make_distributed_batch", "model_parallel_layout", "model_parallel_mesh",
+           "replicate", "shard_batch", "shard_params", "tp_param_specs", "use_mesh",
+           "whole_template"]

@@ -20,9 +20,18 @@ its flattened entries, keeps its whole state on every rank: those updates
 read the whole gradient. The flagship's spectral weights, nearly all of its
 state, are cut.
 
+On a model-sharded model (``mesh.shard_params``) a sliced parameter is
+cut along its largest dim other than the model's sliced one, and its
+state carries both cuts: the inner ``AdamW`` knows the model slices
+(``model_parallel``), so the factored means over a sliced dim and the
+gradient norm are summed over the model group as well. JAX keeps the
+state data-sharded and replicated over 'model'; the port's state is cut
+over both groups, which changes where it lives, not its numbers.
+
 ``state_dict`` gathers the state to the whole tree the JAX files hold
-(``optimizer.msgpack``), and ``load_state_dict`` takes that tree and keeps
-this rank's slices, so a replicated run and a ZeRO run resume each other.
+(``optimizer.msgpack``: over the data group, then the model group), and
+``load_state_dict`` takes that tree and keeps this rank's slices, so a
+replicated run and a ZeRO run resume each other, at any model size.
 """
 
 from typing import Dict, Optional
@@ -30,18 +39,19 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
-from .comm import all_gather_along
+from .comm import all_gather_along, own_slice
 from .mesh import DATA_AXIS
 
 __all__ = ["ZeroAdamW", "shard_opt_state", "zero_specs"]
 
 
-def _leaf_spec(shape, n: int) -> Optional[int]:
+def _leaf_spec(shape, n: int, skip: Optional[int] = None) -> Optional[int]:
     """The largest dim divisible by ``n`` (the first of equals), or None:
-    scalars and awkward shapes are a rounding error of the state."""
+    scalars and awkward shapes are a rounding error of the state. ``skip``:
+    a dim not to take (a model slice's sliced dim)."""
     best = None
     for d, s in enumerate(shape):
-        if s % n == 0 and s >= n and (best is None or s > shape[best]):
+        if d != skip and s % n == 0 and s >= n and (best is None or s > shape[best]):
             best = d
     return best
 
@@ -80,9 +90,11 @@ class ZeroAdamW:
     the ``Trainer`` leaves them; the global gradient norm of
     ``max_grad_norm`` is summed over the slices. Stochastic rounding draws
     its noise for each slice, so it is not the replicated run's noise.
+    ``model_parallel``: ``mesh.model_parallel_layout`` of a model-sharded
+    model (see the module docstring).
     """
 
-    def __init__(self, transform, named_params, mesh):
+    def __init__(self, transform, named_params, mesh, model_parallel=None):
         from ..training.optimizer import AdamW
 
         self.mesh = mesh
@@ -91,9 +103,10 @@ class ZeroAdamW:
         settings = transform.settings
         factored = settings.get("factored_second_moment", False)
         int8 = settings.get("mu_dtype") == "int8"
+        model_dims = {} if model_parallel is None else model_parallel[1]
         self.params, self.dims, local = [], [], []
         for name, p in named_params:
-            dim = None if n == 1 else _leaf_spec(tuple(p.shape), n)
+            dim = None if n == 1 else _leaf_spec(tuple(p.shape), n, model_dims.get(name))
             if factored and p.ndim >= 2 and (int8 or dim is not None and dim >= p.ndim - 2):
                 dim = None
             self.params.append((name, p))
@@ -104,7 +117,7 @@ class ZeroAdamW:
                 chunk = p.shape[dim] // n
                 local.append((name, p.detach().narrow(dim, rank * chunk, chunk)))
         names, tensors = zip(*local)
-        self.inner = AdamW(tensors, names=names, **settings)
+        self.inner = AdamW(tensors, names=names, model_parallel=model_parallel, **settings)
         self.local = list(tensors)
         self.needs_value = self.inner.needs_value
         self.ema_decay = self.inner.ema_decay
@@ -117,18 +130,30 @@ class ZeroAdamW:
                 yield p, dim, loc
 
     def _global_norm(self) -> Optional[torch.Tensor]:
-        """The whole gradient's l2 norm: the cut leaves' squares summed over
-        the data ranks, the whole ones counted once."""
+        """The whole gradient's l2 norm: each leaf's squares summed over the
+        groups it is cut over (data, model, both), the whole ones counted
+        once."""
         if self.inner.max_grad_norm is None:
             return None
-        cut = [(t.grad.float() ** 2).sum() for d, t in zip(self.dims, self.local)
-               if d is not None and t.grad is not None]
-        whole = [(t.grad.float() ** 2).sum() for d, t in zip(self.dims, self.local)
-                 if d is None and t.grad is not None]
+        sliced = self.inner.model_dims
         zero = self.local[0].new_zeros((), dtype=torch.float32)
-        cut = torch.stack(cut).sum() if cut else zero.clone()
-        dist.all_reduce(cut, group=self.group)
-        return torch.sqrt(cut + (torch.stack(whole).sum() if whole else zero))
+
+        def total(data_cut: bool, model_cut: bool) -> torch.Tensor:
+            sq = [(t.grad.float() ** 2).sum() for d, t in zip(self.dims, self.local)
+                  if (d is not None) == data_cut and (t in sliced) == model_cut
+                  and t.grad is not None]
+            return torch.stack(sq).sum() if sq else zero.clone()
+
+        both, data, model, whole = (total(True, True), total(True, False),
+                                    total(False, True), total(False, False))
+        over_data = torch.stack([both, data])
+        dist.all_reduce(over_data, group=self.group)
+        both, data = over_data.unbind(0)
+        if sliced:
+            over_model = torch.stack([both, model])
+            dist.all_reduce(over_model, group=self.inner.model_group)
+            both, model = over_model.unbind(0)
+        return torch.sqrt(both + data + model + whole)
 
     @torch.no_grad()
     def step(self, closure=None, lr_scale: float = 1.0, generator=None, value=None):
@@ -151,21 +176,45 @@ class ZeroAdamW:
         self.inner.zero_grad(set_to_none=set_to_none)
 
     # -- the whole state, as the replicated optimizer keeps it
+    def _model_dims(self, loc) -> Dict[str, int]:
+        """``{key: dim}`` of the state tensors of ``loc`` that hold model slices."""
+        from ..training.optimizer import _state_dim
+
+        mdim = self.inner.model_dims.get(loc)
+        if mdim is None:
+            return {}
+        dims = {k: _state_dim(k, mdim, loc.ndim) for k in self.inner.state[loc]}
+        return {k: d for k, d in dims.items() if d is not None}
+
     def _whole_states(self) -> Dict[str, dict]:
         states = {}
         for (name, p), dim, loc in zip(self.params, self.dims, self.local):
-            state = self.inner.state[loc]
-            if dim is None:
-                states[name] = dict(state)
-                continue
+            model = self._model_dims(loc)
             whole = {}
-            for key, t in state.items():
-                whole[key] = all_gather_along(t, dim, self.group) if t.ndim > dim else t
+            for key, t in self.inner.state[loc].items():
+                if dim is not None and t.ndim > dim:
+                    t = all_gather_along(t, dim, self.group)
+                if key in model:
+                    t = all_gather_along(t, model[key], self.inner.model_group)
+                whole[key] = t
             states[name] = whole
         return states
 
     def _named_states(self) -> Dict[str, dict]:
         return self._whole_states()
+
+    def cut_state(self) -> dict:
+        """This rank's state for a sharded checkpoint (``AdamW.cut_state``'s
+        layout): each state tensor with its data and model dims."""
+        out = {"count": self.inner.count, "state": {}}
+        for (name, _), dim, loc in zip(self.params, self.dims, self.local):
+            model = self._model_dims(loc)
+            out["state"][name] = {
+                k: (t, dim if dim is not None and t.ndim > dim else None, model.get(k))
+                for k, t in self.inner.state[loc].items()}
+        if self.inner.plateau is not None:
+            out["plateau"] = dict(self.inner.plateau_state)
+        return out
 
     def state_dict(self) -> dict:
         """The whole state as optax's tree (every rank joins the gathers)."""
@@ -189,13 +238,17 @@ class ZeroAdamW:
                 inner.plateau_state[key].copy_(torch.as_tensor(value))
             state_dict = state_dict["0"]
         n = self.mesh.shape[DATA_AXIS]
+        mp = 1 if inner.model_group is None else dist.get_world_size(inner.model_group)
         template = {}
         for (name, _), dim, loc in zip(self.params, self.dims, self.local):
+            model = self._model_dims(loc)
             template[name] = {}
             for key, t in inner.state[loc].items():
                 shape = list(t.shape)
                 if dim is not None and t.ndim > dim:
                     shape[dim] *= n
+                if key in model:
+                    shape[model[key]] *= mp
                 template[name][key] = t.new_empty(shape)
         count, loaded = adamw_state_from_optax(state_dict, template, inner.factored,
                                                clipped=inner.max_grad_norm is not None)
@@ -203,7 +256,10 @@ class ZeroAdamW:
         rank = self.mesh.data_rank
         for (name, _), dim, loc in zip(self.params, self.dims, self.local):
             state = inner.state[loc]
+            model = self._model_dims(loc)
             for key, value in loaded[name].items():
+                if key in model:
+                    value = own_slice(value, model[key], inner.model_group)
                 if dim is not None and state[key].ndim > dim:
                     chunk = value.shape[dim] // n
                     value = value.narrow(dim, rank * chunk, chunk)

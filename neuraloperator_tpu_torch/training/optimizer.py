@@ -34,6 +34,18 @@ the loss given to ``step(value=...)`` stops improving
 schedulers :class:`StepLR` and :class:`ReduceLROnPlateau` follow the
 ``Trainer``'s epoch protocol instead.
 
+Bound to a model-sharded model's parameters (``parallel.mesh.shard_params``;
+``bind(..., model_parallel=mesh.model_parallel_layout(model))``), each
+sliced leaf's state is its slice too, and the update is the whole leaf's
+update restricted to the slice: the global gradient norm sums the sliced
+leaves' squares over the model group once and counts the others once; a
+factored second moment whose row or column mean runs over the sliced dim
+(a factorized ``w_factor_1``'s out channels are one of its last two axes)
+takes that mean, and ``r_mean``, over the group; an int8 first moment,
+whose blocks of the flattened leaf straddle the slices, stays whole on
+every rank and is updated from the gathered gradient. ``state_dict``
+gathers the slices to the whole tree and ``load_state_dict`` cuts it.
+
 The step count, the learning rate and the bias corrections live in device
 tensors and are updated by device ops inside ``step``, as optax computes
 them (f32 arithmetic on an int32 count): a step reads nothing back to the
@@ -51,8 +63,10 @@ import warnings
 from typing import Callable, Dict, Iterable, NamedTuple, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 from ..convert import adamw_state_from_optax, adamw_state_to_optax
+from ..parallel import comm
 
 Schedule = Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]
 
@@ -211,6 +225,21 @@ def _is_factored(p: torch.Tensor) -> bool:
     return p.ndim >= 2
 
 
+def _state_dim(key: str, dim: int, ndim: int) -> Optional[int]:
+    """The dim of a state tensor ``key`` that holds a parameter's sliced
+    ``dim`` (``ndim`` the parameter's), or None where the state is whole:
+    the factored means drop an axis, the int8 blocks are kept whole."""
+    if key in ("mu_codes", "mu_scale"):
+        return None
+    if key == "nu_row":
+        return dim if dim < ndim - 1 else None
+    if key == "nu_col":
+        if dim == ndim - 2:
+            return None
+        return dim if dim < ndim - 2 else ndim - 2
+    return dim
+
+
 @functools.lru_cache(maxsize=None)
 def _rounded(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype``: JAX casts a Python scalar to the dtype
@@ -249,7 +278,9 @@ class AdamW(torch.optim.Optimizer):
     parameter's state is made when the optimizer is: a step allocates no
     state and synchronises with nothing. ``names`` (one per parameter, the
     ``state_dict`` names the JAX parameter tree uses) are needed only by
-    ``state_dict`` and ``load_state_dict``.
+    ``state_dict`` and ``load_state_dict``, and by ``model_parallel``
+    (``(group, {name: dim})``: the parameters held as slices of ``dim``
+    over ``group``; see the module docstring).
     """
 
     def __init__(
@@ -266,10 +297,18 @@ class AdamW(torch.optim.Optimizer):
         max_grad_norm: Optional[float] = None,
         plateau: Optional[dict] = None,
         names: Optional[Sequence[str]] = None,
+        model_parallel=None,
     ):
         params = list(params)
         if names is not None and len(names) != len(params):
             raise ValueError(f"{len(names)} names for {len(params)} parameters")
+        # the model-sharded leaves: {parameter: sliced dim} over model_group
+        self.model_group, self.model_dims = None, {}
+        if model_parallel is not None:
+            if names is None:
+                raise ValueError("a model-parallel AdamW needs the parameters' names")
+            self.model_group, dims = model_parallel
+            self.model_dims = {p: dims[n] for n, p in zip(names, params) if n in dims}
         defaults = dict(weight_decay=weight_decay, betas=tuple(betas), eps=eps)
         super().__init__(params, defaults)
         self.learning_rate = learning_rate
@@ -320,7 +359,7 @@ class AdamW(torch.optim.Optimizer):
         # is the EMA
         f32 = dict(dtype=torch.float32, device=p.device)
         if self.mu_int8 and _is_factored(p):
-            codes, scale = quantize_blockwise(torch.zeros(p.shape, **f32))
+            codes, scale = quantize_blockwise(torch.zeros(self._whole_shape(p), **f32))
             state = {"mu_codes": codes, "mu_scale": scale}
         elif self.mu_int8:  # small leaves keep a bf16 first moment
             state = {"mu": torch.zeros_like(p, dtype=torch.bfloat16)}
@@ -335,13 +374,27 @@ class AdamW(torch.optim.Optimizer):
             state["ema"] = p.detach().to(torch.float32, copy=True)
         return state
 
+    def _whole_shape(self, p: torch.Tensor) -> tuple:
+        """The shape of the whole leaf ``p`` is a slice of (its own if whole)."""
+        shape = list(p.shape)
+        if p in self.model_dims:
+            shape[self.model_dims[p]] *= dist.get_world_size(self.model_group)
+        return tuple(shape)
+
     def _global_norm(self) -> Optional[torch.Tensor]:
-        """The gradients' global l2 norm (``optax.global_norm``), when clipping."""
+        """The gradients' global l2 norm (``optax.global_norm``), when
+        clipping: a sliced leaf's squares summed over the model group."""
         if self.max_grad_norm is None:
             return None
-        sq = [(p.grad * p.grad).sum().float() for group in self.param_groups
-              for p in group["params"] if p.grad is not None]
-        return torch.sqrt(torch.stack(sq).sum())
+        params = [p for group in self.param_groups for p in group["params"]
+                  if p.grad is not None]
+        sq = [(p.grad * p.grad).sum().float() for p in params if p not in self.model_dims]
+        if not self.model_dims:
+            return torch.sqrt(torch.stack(sq).sum())
+        cut = torch.stack([(p.grad * p.grad).sum().float() for p in params
+                           if p in self.model_dims]).sum()
+        dist.all_reduce(cut, group=self.model_group)
+        return torch.sqrt(cut + (torch.stack(sq).sum() if sq else torch.zeros_like(cut)))
 
     def _plateau_scale(self, value) -> torch.Tensor:
         """``optax.contrib.reduce_on_plateau``'s update with
@@ -394,7 +447,8 @@ class AdamW(torch.optim.Optimizer):
                     g = torch.where(g_norm < self.max_grad_norm, g,
                                     g / g_norm.to(g.dtype) * self.max_grad_norm)
                 state = self.state[p]
-                u = self._adam_direction(g, state, b1, b2, b1c, b2c, group["eps"])
+                u = self._adam_direction(g, state, b1, b2, b1c, b2c, group["eps"],
+                                         self.model_dims.get(p))
                 # add_decayed_weights, then scale_by_learning_rate
                 u = u + _rounded(group["weight_decay"], p.dtype) * p
                 u = -lr * u
@@ -417,17 +471,34 @@ class AdamW(torch.optim.Optimizer):
                 _apply_update(p, u, generator)
         return loss
 
-    def _adam_direction(self, g, state, b1, b2, b1c, b2c, eps) -> torch.Tensor:
-        """The scaled Adam direction ``m_hat / (sqrt(v_hat) + eps)``, updating the state."""
+    def _mean(self, t: torch.Tensor, axis: int, sliced: bool, keepdim: bool = False):
+        """``t``'s mean over ``axis``; over the model group's slices too when
+        ``axis`` is the sliced one (equal slices: the mean of the means)."""
+        m = torch.mean(t, dim=axis, keepdim=keepdim)
+        if sliced:
+            dist.all_reduce(m, group=self.model_group)
+            m = m / dist.get_world_size(self.model_group)
+        return m
+
+    def _adam_direction(self, g, state, b1, b2, b1c, b2c, eps,
+                        dim: Optional[int] = None) -> torch.Tensor:
+        """The scaled Adam direction ``m_hat / (sqrt(v_hat) + eps)``, updating
+        the state; ``dim``: the sliced dim of a model-sharded leaf."""
         if "mu_codes" in state:
             # scale_by_adam_factored's int8 branch: the EMA in f32 from the
             # dequantized moment; the unrounded moment feeds the update, the
-            # quantized one is stored (in place: a captured graph replays it)
+            # quantized one is stored (in place: a captured graph replays it).
+            # A slice's blocks are the whole leaf's: its gradient is gathered
+            g32 = g.float()
+            if dim is not None:
+                g32 = comm.all_gather_along(g32, dim, self.model_group)
             codes, scale = state["mu_codes"], state["mu_scale"]
-            m = b1 * dequantize_blockwise(Quantized8(codes, scale), g.shape) + (1 - b1) * g.float()
+            m = b1 * dequantize_blockwise(Quantized8(codes, scale), g32.shape) + (1 - b1) * g32
             q = quantize_blockwise(m)
             codes.copy_(q.codes)
             scale.copy_(q.scale)
+            if dim is not None:
+                m = comm.own_slice(m, dim, self.model_group)
         elif self.mu_int8:
             mu = state["mu"]
             m = b1 * mu.float() + (1 - b1) * g.float()
@@ -458,10 +529,11 @@ class AdamW(torch.optim.Optimizer):
         else:
             r, c = state["nu_row"], state["nu_col"]
             g2 = g32 * g32
-            r.copy_(b2 * r + (1 - b2) * torch.mean(g2, dim=-1))
-            c.copy_(b2 * c + (1 - b2) * torch.mean(g2, dim=-2))
+            n = g.ndim
+            r.copy_(b2 * r + (1 - b2) * self._mean(g2, -1, dim == n - 1))
+            c.copy_(b2 * c + (1 - b2) * self._mean(g2, -2, dim == n - 2))
             # rank-1 reconstruction V ~= R C^T / mean(R)
-            r_mean = torch.mean(r, dim=-1, keepdim=True)
+            r_mean = self._mean(r, -1, dim == n - 2, keepdim=True)
             v = r[..., :, None] * c[..., None, :] / (r_mean[..., None] + 1e-30)
         m_hat = m.float() / b1c
         return m_hat / (torch.sqrt(v / b2c) + eps)
@@ -472,11 +544,45 @@ class AdamW(torch.optim.Optimizer):
                              "named parameters to save or load its state")
         return dict(zip(self.names, (self.state[p] for p in self.param_groups[0]["params"])))
 
+    def _sliced_keys(self):
+        """``(name, state, {key: dim})`` of each model-sharded leaf: the dims
+        of its state tensors that hold slices."""
+        for name, p in zip(self.names or (), self.param_groups[0]["params"]):
+            if p in self.model_dims:
+                state = self.state[p]
+                dims = {k: _state_dim(k, self.model_dims[p], p.ndim) for k in state}
+                yield name, state, {k: d for k, d in dims.items() if d is not None}
+
+    def _whole_states(self) -> dict:
+        """``_named_states`` with every slice all-gathered over the model
+        group (every model rank must call it)."""
+        states = self._named_states()
+        for name, state, dims in self._sliced_keys():
+            states[name] = {k: (comm.all_gather_along(t, dims[k], self.model_group)
+                                if k in dims else t) for k, t in state.items()}
+        return states
+
+    def cut_state(self) -> dict:
+        """This rank's state for a sharded checkpoint
+        (``training_state.save_training_state_orbax``): ``{"count": ...,
+        "state": {name: {key: (tensor, data dim, model dim)}}}`` (and
+        ``"plateau"``): the optimizer's own tensors, each with the dims
+        along which it is a slice over the data and the model group (None:
+        whole)."""
+        sliced = {name: dims for name, _, dims in self._sliced_keys()}
+        out = {"count": self.count, "state": {
+            name: {k: (t, None, sliced.get(name, {}).get(k)) for k, t in state.items()}
+            for name, state in self._named_states().items()}}
+        if self.plateau is not None:
+            out["plateau"] = dict(self.plateau_state)
+        return out
+
     def state_dict(self) -> dict:
         """The state as optax's state tree (``convert.adamw_state_to_optax``):
         the tree the JAX package saves as ``optimizer.msgpack``. Its leaves
-        are this optimizer's own tensors, not copies."""
-        tree = adamw_state_to_optax(int(self.count), self._named_states(), self.factored,
+        are this optimizer's own tensors, not copies, but for a sliced
+        leaf's, which are gathered to the whole leaf's."""
+        tree = adamw_state_to_optax(int(self.count), self._whole_states(), self.factored,
                                     clipped=self.max_grad_norm is not None)
         if self.plateau is not None:
             tree = {"0": tree, "1": dict(self.plateau_state)}
@@ -494,11 +600,22 @@ class AdamW(torch.optim.Optimizer):
             for key, value in state_dict["1"].items():
                 self.plateau_state[key].copy_(torch.as_tensor(value))
             state_dict = state_dict["0"]
-        count, loaded = adamw_state_from_optax(state_dict, states, self.factored,
+        template = dict(states)
+        size = 1 if self.model_group is None else dist.get_world_size(self.model_group)
+        for name, state, dims in self._sliced_keys():
+            # the whole leaf's state is read on the host, then cut
+            template[name] = {k: t.new_empty([s * size if d == dims.get(k) else s
+                                              for d, s in enumerate(t.shape)], device="cpu")
+                              if k in dims else t for k, t in state.items()}
+        count, loaded = adamw_state_from_optax(state_dict, template, self.factored,
                                                clipped=self.max_grad_norm is not None)
         self.count.fill_(count)
+        sliced = {name: dims for name, _, dims in self._sliced_keys()}
         for name, state in states.items():
             for key, value in loaded[name].items():
+                if key in sliced.get(name, ()):
+                    value = comm.own_slice(value.to(state[key].device), sliced[name][key],
+                                           self.model_group)
                 state[key].copy_(value)
 
 
@@ -512,14 +629,16 @@ class AdamWTransform:
     def __init__(self, **settings):
         self.settings = settings
 
-    def bind(self, params) -> AdamW:
+    def bind(self, params, model_parallel=None) -> AdamW:
         """``params``: tensors, or ``(name, tensor)`` pairs such as
-        ``model.named_parameters()`` (needed to save and load the state)."""
+        ``model.named_parameters()`` (needed to save and load the state, and
+        by ``model_parallel``: ``parallel.mesh.model_parallel_layout`` of a
+        sharded model)."""
         params = list(params)
         if params and isinstance(params[0], tuple):
             names, params = zip(*params)
-            return AdamW(params, names=names, **self.settings)
-        return AdamW(params, **self.settings)
+            return AdamW(params, names=names, model_parallel=model_parallel, **self.settings)
+        return AdamW(params, model_parallel=model_parallel, **self.settings)
 
 
 def adamw(
@@ -599,7 +718,8 @@ def with_ema(optimizer: AdamWTransform, decay: float = 0.999) -> AdamWTransform:
 
 def ema_params(optimizer: AdamW) -> Dict[str, torch.Tensor]:
     """The EMA of a :func:`with_ema` optimizer: ``{name: f32 tensor}`` (the
-    optimizer's own tensors)."""
+    optimizer's own tensors; a model-sharded leaf's EMA is its slice, as
+    the parameter is)."""
     if optimizer.ema_decay is None:
         raise TypeError("the optimizer does not carry an EMA — build it with with_ema(...)")
     return {name: state["ema"] for name, state in optimizer._named_states().items()}

@@ -40,15 +40,19 @@ when training starts; after each backward the gradients are summed over
 the data ranks for a loss with ``reduction="sum"`` and averaged for
 ``"mean"`` (the loss of the JAX package's step is over the global batch),
 and so are the step's loss and each evaluation loss. A regularizer's
-penalty and its gradient are added after those reductions, once. At model
-size > 1 the dense spectral convolutions contract by out-channel slices
-(``shard_params``), whose gradients are summed over the model group; a
-patching processor that scatters its patches over the model ranks takes
-the model group instead, every gradient reduced over it. ``zero_sharding``
-cuts the optimizer state over the data ranks (``parallel.zero.ZeroAdamW``,
-bound in place of the replicated optimizer).
-Rank 0 alone writes the files and prints. ``device_dataset`` is refused
-with a mesh, as in JAX.
+penalty and its gradient are added after those reductions, once (on the
+whole parameters: a model slice is gathered for it). At model size > 1
+each rank holds its model rank's slice of the spectral weights the JAX
+package shards (``shard_params``, before the optimizer is bound, so the
+optimizer's state is cut too): each rank holds its slice's whole
+gradient, and nothing is reduced over the model group; a patching
+processor that scatters its patches over the model ranks takes the model
+group instead, every gradient reduced over it, and the weights whole.
+``zero_sharding`` cuts the optimizer state over the data ranks
+(``parallel.zero.ZeroAdamW``, bound in place of the replicated optimizer).
+Saves gather the slices to the whole tree, which rank 0 alone writes
+(every rank joins the gathers), and loads cut it again; rank 0 alone
+prints. ``device_dataset`` is refused with a mesh, as in JAX.
 """
 
 import json
@@ -131,9 +135,6 @@ def _reduce_step(plan: dict, loss: torch.Tensor) -> torch.Tensor:
     ranks by ``Trainer._sync_plan``'s plan; returns the step's loss."""
     for group, reduction in plan["grads"]:
         comm.reduce_gradients(plan["params"], group, reduction)
-    if plan["sharded"]:
-        # each model rank holds the gradient of its out channels alone
-        comm.reduce_gradients(plan["sharded"], plan["model_group"], "sum")
     for group, reduction in plan["loss"]:
         loss = comm.reduce_value(loss, group, reduction)
     return loss
@@ -208,8 +209,7 @@ class Trainer:
 
     def _sync_plan(self, training_loss) -> Optional[dict]:
         """The reductions of a distributed step, or None without a mesh:
-        ``grads`` ((group, reduction) for every parameter), ``sharded``
-        (for the out-channel-sliced weights besides) and ``loss``."""
+        ``grads`` ((group, reduction) for every parameter) and ``loss``."""
         mesh = self.mesh
         if mesh is None:
             return None
@@ -228,11 +228,7 @@ class Trainer:
             grads.append((mesh.model_group, "sum" if stitched else reduction))
             if not stitched:
                 loss.append((mesh.model_group, reduction))
-        names = set(getattr(self.model, "model_parallel_params", ()))
-        params = dict(self.model.named_parameters())
-        return {"grads": grads, "loss": loss, "params": list(params.values()),
-                "sharded": [params[n] for n in sorted(names)],
-                "model_group": mesh.model_group}
+        return {"grads": grads, "loss": loss, "params": list(self.model.parameters())}
 
     def _build_train_step(self, training_loss, regularizer=None, rollout_steps: int = 1,
                           pushforward: bool = True) -> Callable:
@@ -243,15 +239,21 @@ class Trainer:
         generator = self.sr_generator
         forward_kwargs = self.train_forward_kwargs
         plan = self._sync_plan(training_loss)
-        # Every rank holds the whole parameters, so a distributed step adds
-        # the penalty and its gradient after the reductions, once: inside
-        # them it would be summed over the ranks
+        # A distributed step adds the penalty and its gradient after the
+        # reductions, once: inside them it would be summed over the ranks.
+        # It sees the whole parameters: a model slice is gathered (its
+        # gradient then reaches this rank's slice alone)
         inline_penalty = regularizer is not None and plan is None
+        layout = mesh_lib.model_parallel_layout(model)
 
         def penalty():
             # a penalty on the parameters, given as the flat
             # {flax-style dotted name: tensor} dict
             params = dict(model.named_parameters())
+            if layout is not None:
+                group, dims = layout
+                params = {n: comm.gather_from_model_parallel_region(p, dims[n], group)
+                          if n in dims else p for n, p in params.items()}
             return regularizer.loss(params) if hasattr(regularizer, "loss") \
                 else regularizer(params)
 
@@ -499,26 +501,35 @@ class Trainer:
                 raise ValueError("device_dataset is a single-device path; use the loader loop "
                                  "with a mesh")
             mesh_lib.replicate(self.model, self.mesh)
+            patcher = getattr(self.data_processor, "patcher", None)
+            if not getattr(patcher, "splits_over_model", False):
+                mesh_lib.shard_params(self.model, self.mesh)
         if self.stochastic_rounding:
             # bf16 MASTER parameters: the update phase carries no f32 copy
             with torch.no_grad():
                 for p in self.model.parameters():
                     if p.dtype == torch.float32:
                         p.data = p.data.to(torch.bfloat16)
+        layout = mesh_lib.model_parallel_layout(self.model)
         if self.mesh is not None and self.zero_sharding:
             from ..parallel.zero import ZeroAdamW
 
-            self.optimizer = ZeroAdamW(optimizer, self.model.named_parameters(), self.mesh)
+            self.optimizer = ZeroAdamW(optimizer, self.model.named_parameters(), self.mesh,
+                                       model_parallel=layout)
+        elif layout is not None:
+            from .optimizer import AdamWTransform
+
+            if not isinstance(optimizer, AdamWTransform):
+                raise not_ported(f"{type(optimizer).__name__} over model-sharded parameters",
+                                 "distribution")
+            self.optimizer = optimizer.bind(self.model.named_parameters(),
+                                            model_parallel=layout)
         else:
             self.optimizer = optimizer.bind(self.model.named_parameters())
         if warm_start_from is not None and resume_from_dir is None:
             self._warm_start(warm_start_from, warm_start_name, warm_start_opt)
         if resume_from_dir is not None and Path(resume_from_dir).exists():
             self._resume(resume_from_dir)
-        if self.mesh is not None:
-            patcher = getattr(self.data_processor, "patcher", None)
-            if not getattr(patcher, "splits_over_model", False):
-                mesh_lib.shard_params(self.model, self.mesh)
 
         if self.sr_generator is not None:
             # a resumed run draws other noise than the run it resumes
@@ -572,10 +583,12 @@ class Trainer:
                 if metric is not None and metric < best_metric:
                     best_metric = metric
                     # epoch=None: the best save must not move the manifest's
-                    # resume epoch past the periodic save it rides with
+                    # resume epoch past the periodic save it rides with;
+                    # every rank joins the gathers, rank 0 writes
+                    state = mesh_lib.gather_state_dict(self.model)
                     if self.is_writer:
                         save_training_state(
-                            save_dir, "best_model", self.model.state_dict(), epoch=None,
+                            save_dir, "best_model", state, epoch=None,
                             extra_manifest={"best_metric": float(metric), "best_epoch": epoch,
                                             "best_key": save_best},
                         )
@@ -586,12 +599,12 @@ class Trainer:
         return all_metrics
 
     def _save_state(self, save_dir, epoch: int) -> None:
-        """``model.msgpack`` and ``optimizer.msgpack``; every rank gathers a
-        ZeRO state, rank 0 writes."""
+        """``model.msgpack`` and ``optimizer.msgpack``; every rank gathers the
+        model slices and a cut state, rank 0 writes."""
         opt_state = self.optimizer.state_dict()
+        state = mesh_lib.gather_state_dict(self.model)
         if self.is_writer:
-            save_training_state(save_dir, "model", self.model.state_dict(), opt_state,
-                                epoch=epoch)
+            save_training_state(save_dir, "model", state, opt_state, epoch=epoch)
 
     def _end_epoch(self, epoch: int, train_err: float) -> None:
         """Called after each epoch's scheduler step, before its evaluation."""
@@ -599,14 +612,13 @@ class Trainer:
     def _warm_start(self, src, name: str, with_optimizer: bool) -> None:
         """Weights (and, asked, the optimizer state) of another run; the
         epoch and the schedule's position stay fresh."""
-        template = self.model.state_dict()
-        state, _, src_epoch = load_training_state(src, name, template, device=self.device)
+        state, _, src_epoch = load_training_state(src, name, self.model, device=self.device)
         self.model.load_state_dict(state)
         opt_state = None
         if with_optimizer:
             try:
                 _, opt_state, _ = load_training_state(
-                    src, name, template, self.optimizer.state_dict(), device=self.device)
+                    src, name, self.model, self.optimizer.state_dict(), device=self.device)
                 if opt_state is None:
                     warnings.warn(f"warm_start_opt=True but no optimizer.msgpack under {src}; "
                                   "continuing with a fresh optimizer state")
@@ -623,8 +635,7 @@ class Trainer:
 
     def _resume(self, src) -> None:
         state, opt_state, epoch = load_training_state(
-            src, "model", self.model.state_dict(), self.optimizer.state_dict(),
-            device=self.device)
+            src, "model", self.model, self.optimizer.state_dict(), device=self.device)
         self.model.load_state_dict(state)
         if opt_state is not None:
             self.optimizer.load_state_dict(opt_state)

@@ -27,8 +27,12 @@ def count_tensor_params(tensor, dims=None) -> int:
 
 def count_model_params(model: torch.nn.Module) -> int:
     """Total real parameter count of ``model``; a complex entry counts twice,
-    as in the JAX package."""
-    return sum(count_tensor_params(p) for _, p in model.named_parameters())
+    as in the JAX package, and a model-sharded parameter
+    (``parallel.mesh.shard_params``) at its whole shape."""
+    sharded = getattr(model, "model_parallel_params", None) or {}
+    return sum(count_tensor_params(p) * (math.prod(sharded[n].shape) // p.numel()
+                                         if n in sharded else 1)
+               for n, p in model.named_parameters())
 
 
 def validate_scaling_factor(

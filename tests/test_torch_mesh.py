@@ -73,7 +73,15 @@ def _port(cls_name, kwargs, params):
 
 
 def _flat_grads(model):
-    return {n: p.grad.detach().numpy().copy() for n, p in model.named_parameters()}
+    """Every parameter's gradient, a model slice's gathered to the whole leaf's."""
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    return {n: g.numpy().copy() for n, g in mesh_lib.gather_state_dict(model, grads).items()}
+
+
+def _flat_params(model):
+    """Every parameter, a model slice gathered to the whole leaf."""
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    return {n: t.numpy().copy() for n, t in mesh_lib.gather_state_dict(model, params).items()}
 
 
 def _lp(reduction):
@@ -136,8 +144,7 @@ def _case_dp_tp_train_step(rank, inputs):
     loader = [{"x": inputs["x"], "y": inputs["y"]}]
     metrics = trainer.train(loader, {}, adamw(1e-3, weight_decay=1e-4),
                             training_loss=_lp("sum"))
-    return {"train_err": metrics["train_err"],
-            "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()},
+    return {"train_err": metrics["train_err"], "params": _flat_params(model),
             "sharded": list(model.model_parallel_params)}
 
 
@@ -217,8 +224,7 @@ def _case_tp_regularized(rank, inputs):
         metrics = trainer.train([{"x": inputs["x"], "y": inputs["y"]}], {}, adamw(1e-3),
                                 training_loss=_lp(reduction), regularizer=_penalty)
         out[reduction] = {"train_err": metrics["train_err"], "grads": _flat_grads(model),
-                          "params": {n: p.detach().numpy().copy()
-                                     for n, p in model.named_parameters()},
+                          "params": _flat_params(model),
                           "sharded": list(model.model_parallel_params)}
     return out
 
@@ -406,12 +412,13 @@ def test_tensor_parallel_spectral_weights(world2, inputs):
 
 @pytest.mark.parametrize("factorization", ["tucker", "cp"])
 def test_tensor_parallel_tfno_factorized(world2, inputs, factorization):
-    """Factorized weights are contracted whole on each model rank (the port
-    splits dense contractions only) and match the JAX mesh's sharded ones."""
+    """Each model rank holds its out-channel slice of every factorized
+    weight's ``w_factor_1``, as the JAX mesh shards it, and contracts it into
+    its out channels: the outputs match the JAX mesh's."""
     want = _jax_tp_out(inputs, factorization)
     for got in world2:
         out, sharded = got["tp_forward"][factorization]
-        assert sharded == []
+        assert sharded == ["fno_blocks.conv_0.w_factor_1", "fno_blocks.conv_1.w_factor_1"]
         np.testing.assert_allclose(out, want, **FORWARD_TOL)
 
 
