@@ -239,7 +239,7 @@ Phases, each printed with its elapsed seconds as it goes:
    ``train_fnogno_carcfd`` with ``--data_source synthetic`` at full width
    (2048-vertex bodies, the 16³ latent grid, radius 0.25, 32 neighbours,
    the FNO at hidden 32 over (8, 8, 8) modes), cut to 16 training and 4
-   test samples and 4 epochs, and ``train_poisson`` at its defaults,
+   test samples and 2 epochs, and ``train_poisson`` at its defaults,
    without and with ``--interior_weight 0.1`` (the interior residual through
    second derivatives with respect to the queries): finite figures within
    twice the JAX scripts' own for the same flags on the CPU, a falling
@@ -256,7 +256,7 @@ Phases, each printed with its elapsed seconds as it goes:
 23. otno: the port's ``scripts.train_otno_carcfd --data_source synthetic``
    at full width (2048-vertex bodies, a 24² latent sphere grid, the OT maps
    by Sinkhorn in float64 on the card, OTNO at hidden 32 over (12, 12)
-   modes, 4 layers), cut to 16 training and 4 test bodies and 4 epochs: a
+   modes, 4 layers), cut to 16 training and 4 test bodies and 2 epochs: a
    finite figure within twice the JAX script's own for the same flags on
    the CPU, a falling training loss, K1-K3 launched as the steps and
    evaluations ask; the same script on the CPU from the same init (every
@@ -306,6 +306,8 @@ Phases, each printed with its elapsed seconds as it goes:
    200; they were 1000, 1000 and 400), phase 9's trajectories at 256² and
    512² from 6 and 4 to 3 and 2, phases 22 and 23's profiles from 10 steps
    to 5, phase 15 from 5 epochs to 3 (and to 2 for phase 25's model axis),
+   phases 22 and 23's car-CFD runs from 4 epochs to 2 (for phases 25(d)'s
+   Tensor-GaLore and 26; JAX's figures retaken on the CPU),
    phase 18 from 30 + 30 epochs to
    10 + 10, phase 8's and phase 12's CPU answers to the first two of the
    six request groups, and the card-against-CPU pairs of phases 5 and 8 from 32 to 16;
@@ -339,11 +341,35 @@ Phases, each printed with its elapsed seconds as it goes:
    ``torch.distributed.checkpoint``), a restore into fresh modules and
    optimizer and 1 step, equal to the bit to 3 uninterrupted steps; and a
    msgpack save at model size 2 that this process (a world of one) reads
-   to the bit of the gathered slices. Gloo runs no
+   to the bit of the gathered slices; then Tensor-GaLore (every leaf of two
+   or more dims projected at rank 3, the spectral weights too, a
+   refresh every 2 steps) on the same two ranks, at model size 2 (the
+   whole leaf's HOSVD, each rank projecting its slice) and under ZeRO at
+   data size 2, 2 steps each (a refresh, then a step between refreshes)
+   in lockstep with one rank's whole-leaf step in the same process (each
+   step from the sharded run's parameters and state): every loss within STEP_LOSS_TOL, each leaf's update within
+   GALORE_UPDATE_TOL but for named known differences (diagonal cores,
+   kept singular values that nearly tie or vanish), never a sliced
+   spectral weight; the factors equal on both ranks, the state's bytes per
+   rank against the whole; and ZeRO with Tensor-GaLore at world size 1 on
+   NCCL equal to the plain loop to the bit. Gloo runs no
    ``all_to_all`` and no point-to-point send on CUDA tensors, so the sharded
    FFT (``DistributedSpectralConv2d``) and the halo exchange are held on the
    CPU only (``tests/test_torch_distributed_fft.py``);
-26. prints one ``{"kernels": [...]}`` line, then, as the last line,
+26. well: the_well's schema on the card. train_mhd64's FNO-3D (n_modes 8³,
+   hidden 16, 4 layers) at 64³, the resolution of the_well's MHD_64, fed
+   windows of 2 input steps (time as channels) and one constant field in
+   the_well's layout (channels last), cut from trajectories made here from
+   a seed by train_mhd64's synthetic fields and diffusion step, through
+   ``TheWellDataProcessor`` (fitted channel-wise normalizers) and the
+   ``Trainer``: 3 loader-loop epochs, then an autoregressive evaluation of
+   3 steps (``format_rollout_batch``, ``ar_feedback``). Checks: finite
+   losses, the training loss falling, K1-K3 launched once per layer and
+   step (K1 also per rollout step) at (2, 16, 16, 320), one step and one
+   rolled-out batch card against CPU from the same weights. Prints the
+   step's ms, the idle share of 3 loop steps, the peak memory and the
+   rollout's seconds;
+27. prints one ``{"kernels": [...]}`` line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -740,18 +766,20 @@ BURGERS_LOSS_TOL, BURGERS_FC_TOL = 1e-5, 1e-4
 # the gno phase: scripts/train_gino_carcfd.py and train_fnogno_carcfd.py on
 # the synthetic car-CFD set (2048-vertex bodies, 16³ latent / SDF grid, the
 # FNO at 32 channels over 8 x 8 x 5 = 320 modes) cut from 100 + 20 samples
-# and 20 epochs to 16 + 4 and 4, and scripts/train_poisson.py at its
+# and 20 epochs to 16 + 4 and 2 (4 before the well phase), and
+# scripts/train_poisson.py at its
 # defaults (the 2-D FNOGNO at 24 channels over 8 x 5 = 40 modes), without and
 # with --interior_weight 0.1. Their final figures within twice the JAX
 # scripts' own for the same flags on the same generated data, on the CPU:
-# GINO test l2 0.54467, FNOGNO 0.48452 (printed to 5 decimals), the Poisson
+# GINO test l2 0.60408, FNOGNO 0.61464 (printed to 5 decimals; at 4
+# epochs 0.54467 and 0.48452), the Poisson
 # test samples 1.2890855073928833 and 1.771366000175476, with the physics
 # loss 4.2353596687316895 and 4.090581893920898. Each port script starts
 # from its own seeded init.
-GNO_CUT = {"n_train": 16, "n_test": 4, "n_epochs": 4, "eval_interval": 4}
+GNO_CUT = {"n_train": 16, "n_test": 4, "n_epochs": 2, "eval_interval": 2}
 GNO_CUT_FLAGS = ["--data_source", "synthetic",
                  *[a for k, v in GNO_CUT.items() for a in (f"--{k}", str(v))]]
-GNO_JAX = {"train_gino_carcfd": [0.54467], "train_fnogno_carcfd": [0.48452],
+GNO_JAX = {"train_gino_carcfd": [0.60408], "train_fnogno_carcfd": [0.61464],
            "train_poisson": [1.2890855073928833, 1.771366000175476],
            "train_poisson_interior": [4.2353596687316895, 4.090581893920898]}
 GNO_BOUNDS = {script: [2 * v for v in figures] for script, figures in GNO_JAX.items()}
@@ -776,16 +804,17 @@ NEIGHBOR_TIE_MARGIN = 1e-5
 # the otno phase: scripts/train_otno_carcfd.py --data_source synthetic at
 # full width (2048-vertex bodies, a 24² latent sphere grid, reg 5e-3, 200
 # Sinkhorn iterations, OTNO at hidden 32 over 12 x 7 = 84 modes, 4 layers),
-# cut from 100 + 20 bodies and 30 epochs to 16 + 4 and 4. Its final figure
-# within twice the JAX script's own for the same flags on the same bodies,
-# on the CPU: test l2 0.51777 (printed to 5 decimals). The port's seeded
+# cut from 100 + 20 bodies and 30 epochs to 16 + 4 and 2 (4 before the well
+# phase). Its final figure within twice the JAX script's own for the same
+# flags on the same bodies, on the CPU: test l2 0.61334 (printed to 5
+# decimals; at 4 epochs 0.51777). The port's seeded
 # init differs between torch builds (trunc_normal_), so the card run is
 # also held to the same script on this machine's CPU from the same init:
 # every epoch's loss and each test figure within OTNO_CPU_TOL, relative.
-OTNO_CUT = {"n_train": 16, "n_test": 4, "n_epochs": 4, "eval_interval": 4}
+OTNO_CUT = {"n_train": 16, "n_test": 4, "n_epochs": 2, "eval_interval": 2}
 OTNO_CUT_FLAGS = ["--data_source", "synthetic",
                   *[a for k, v in OTNO_CUT.items() for a in (f"--{k}", str(v))]]
-OTNO_JAX = 0.51777
+OTNO_JAX = 0.61334
 OTNO_CPU_TOL = 1e-4
 # its contraction at batch 1: 32 x 32 channels over 84 modes
 OTNO_SHAPE = ("otno", 1, 32, 12 * 7)
@@ -865,10 +894,41 @@ OPTION_STEPS, OPTION_RES, OPTION_MODES = 3, 32, [16, 16]
 # the 8 rows, replicated and under ZeRO, each rank's group ended within
 # DIST_TIMEOUT_S
 DIST_PAIRS, DIST_TESTS, DIST_RANKS, DIST_TIMED_STEPS = 200, 32, 2, 3
-DIST_TIMEOUT_S = 180
+DIST_TIMEOUT_S = 360
 # (d): the model axis at mesh (data 1, model DIST_MODEL_SIZE) on two ranks
 # sharing the card; the resume check's steps before its save and after it
 DIST_MODEL_SIZE, DIST_RESUME_STEPS = 2, (2, 1)
+# (d) Tensor-GaLore on the same two ranks: the seeded flagship with every
+# leaf of two or more dims projected (min_dim_size_to_project 2: the spectral
+# weights' real/imaginary axis counts) at rank GALORE_AXIS_RANK, the largest
+# the flagship takes there: lifting.w0 (128 x 3) unfolds to 3 columns, and
+# a larger rank fails on it in both packages (JAX's lax.cond branches
+# disagree in shape). Each spectral weight keeps 3 of its 64 in and out
+# channels (the sliced out channels' factor among them) and of its modes: a
+# core of 2 x 3^4. A refresh every GALORE_GAP steps, GALORE_AXIS_STEPS steps
+# (a refresh, then a step between refreshes) at model size 2 and under ZeRO
+# at data size 2, each in lockstep with one rank's whole-leaf run (before
+# each step it takes the sharded run's parameters and state): every step's
+# loss within STEP_LOSS_TOL and each leaf's update within GALORE_UPDATE_TOL,
+# phase 24's bounds for GaLore on the card against the CPU. A matrix both of
+# whose sides truncate (a diagonal core), or a leaf whose kept singular
+# values lie within GALORE_AXIS_SPREAD of each other, of the first one
+# dropped or of zero (galore_known), is a known difference, named; a sliced
+# spectral weight never is. Then ZeRO at world size 1 on NCCL against the
+# plain loop, to the bit.
+GALORE_AXIS_RANK, GALORE_AXIS_STEPS, GALORE_AXIS_SPREAD = 3, 2, 1e-4
+
+# the well phase (26): train_mhd64's FNO-3D on the_well's schema at 64³, the
+# resolution of the_well's MHD_64 (MHDDataConfig.resolution's note): windows
+# of WELL_STEPS_IN input steps (time as channels) and one constant field
+# from WELL_TRAIN_TRAJ synthetic trajectories, WELL_EPOCHS loop epochs of
+# batch WELL_BATCH through TheWellDataProcessor and the Trainer, then an
+# autoregressive evaluation of WELL_ROLLOUT steps on WELL_TEST_TRAJ
+# trajectories. The rolled-out batch, card against CPU: each loss within
+# WELL_ROLLOUT_TOL (the served answers' bound: three chained forwards)
+WELL_RES, WELL_STEPS_IN, WELL_WINDOWS, WELL_ROLLOUT = 64, 2, 2, 3
+WELL_TRAIN_TRAJ, WELL_TEST_TRAJ, WELL_BATCH, WELL_EPOCHS = 6, 2, 2, 3
+WELL_ROLLOUT_TOL, WELL_PROFILE_STEPS = 1e-4, 3
 DIST_FLAGS = [
     "--data.n_train", str(DIST_PAIRS), "--data.train_resolution", "128",
     "--data.n_tests", f"[{DIST_TESTS}]", "--data.test_resolutions", "[128]",
@@ -5281,6 +5341,178 @@ def patching(recipe_run: dict) -> dict:
             "phase_s": phase_s}
 
 
+def well_trajectories(n: int, length: int, seed: int):
+    """``n`` trajectories of ``length`` steps at WELL_RES³ in the_well's layout
+    (n, length, res, res, res, 3), made by train_mhd64's synthetic fields
+    (a band-limited first step and its diffused second) and its diffusion
+    step after them; one constant field each (n, res, res, res, 1), a
+    band-limited scalar of the same generator."""
+    from neuraloperator_tpu_torch.scripts import train_mhd64 as tmhd
+
+    first, second = tmhd._synthetic_mhd(n, WELL_RES, seed=seed)
+    steps = [first, second]
+    while len(steps) < length:
+        steps.append(np.stack([tmhd.diffuse(u) for u in steps[-1]]).astype(np.float32))
+    fields = np.moveaxis(np.stack(steps[:length], axis=1), 2, -1)
+    constants = np.moveaxis(tmhd._synthetic_mhd(n, WELL_RES, seed=seed + 1)[0][:, :1], 1, -1)
+    return np.ascontiguousarray(fields), np.ascontiguousarray(constants)
+
+
+def well_model(device: str, channels: int):
+    """train_mhd64's FNO-3D (MHDConfig: n_modes 8³, hidden 16) taking the
+    ``channels`` the processor lays out, its weights seeded."""
+    from neuraloperator_tpu_torch.models import get_model
+    from neuraloperator_tpu_torch.scripts import train_mhd64 as tmhd
+
+    cfg = tmhd.MHDConfig()
+    cfg.model.data_channels = channels
+    return get_model(cfg.to_dict(), device=device,
+                     generator=torch.Generator().manual_seed(SEED + 60))
+
+
+def well() -> dict:
+    """(26) the_well's schema on the card (see the module docstring)."""
+    from neuraloperator_tpu_torch.data.datasets import DataLoader, DictDataset
+    from neuraloperator_tpu_torch.data.transforms import (
+        TheWellDataProcessor,
+        UnitGaussianNormalizer,
+    )
+    from neuraloperator_tpu_torch.losses import H1Loss, LpLoss
+    from neuraloperator_tpu_torch.ops import spectral_contraction as tsc
+    from neuraloperator_tpu_torch.scripts import train_mhd64 as tmhd
+    from neuraloperator_tpu_torch.training import Trainer, adamw, build_optimizer, step_lr
+
+    t0 = time.perf_counter()
+    n_in, c = WELL_STEPS_IN, 3
+    train_f, train_c = well_trajectories(WELL_TRAIN_TRAJ, n_in + WELL_WINDOWS, SEED + 61)
+    test_f, test_c = well_trajectories(WELL_TEST_TRAJ, n_in + WELL_ROLLOUT, SEED + 62)
+    windows = [{"input_fields": train_f[i, t:t + n_in],
+                "output_fields": train_f[i, t + n_in:t + n_in + 1],
+                "constant_fields": train_c[i]}
+               for i in range(WELL_TRAIN_TRAJ) for t in range(WELL_WINDOWS)]
+    trajectories = [{"output_fields": test_f[i], "constant_fields": test_c[i]}
+                    for i in range(WELL_TEST_TRAJ)]
+    # channel-wise statistics of the training fields on (b, c, t, spatial)
+    data_norm = UnitGaussianNormalizer(dim=[0, 2, 3, 4, 5]).fit(np.moveaxis(train_f, -1, 1))
+    const_norm = UnitGaussianNormalizer(dim=[0, 2, 3, 4]).fit(np.moveaxis(train_c, -1, 1))
+    processor = TheWellDataProcessor(data_normalizer=data_norm, const_normalizer=const_norm,
+                                     n_steps_input=n_in, n_steps_rollout=WELL_ROLLOUT)
+    channels = n_in * c + 1
+    data_s = time.perf_counter() - t0
+    cfg = tmhd.MHDConfig()
+    model = well_model("cuda", channels)
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    steps = len(windows) // WELL_BATCH
+    evals = WELL_ROLLOUT * math.ceil(WELL_TEST_TRAJ / WELL_BATCH)
+    transform = adamw(step_lr(cfg.opt.learning_rate, cfg.opt.step_size, cfg.opt.gamma, steps),
+                      weight_decay=cfg.opt.weight_decay)
+    h1, l2 = H1Loss(d=3), LpLoss(d=3, p=2)
+    record = RecordingScheduler()
+    trainer = Trainer(model=model, n_epochs=WELL_EPOCHS, data_processor=processor,
+                      device="cuda", eval_interval=WELL_EPOCHS)
+    shapes, launch = set(), tsc._launch
+
+    def recording(kind, a, b, out_shape, dims):
+        shapes.add((kind, tuple(dims)))
+        return launch(kind, a, b, out_shape, dims)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tsc._launch = recording
+    try:
+        t1 = time.perf_counter()
+        metrics = trainer.train(DataLoader(DictDataset(windows), WELL_BATCH, shuffle=True), {},
+                                transform, scheduler=record, training_loss=h1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        rollout = trainer.evaluate(None, DataLoader(DictDataset(trajectories), WELL_BATCH),
+                                   "well", mode="autoregression",
+                                   eval_losses={"h1": h1, "l2": l2})
+        torch.cuda.synchronize()
+        rollout_s = time.perf_counter() - t1
+    finally:
+        tsc._launch = launch
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    step_ms = 1e3 * metrics["epoch_time"] / steps
+    only_dtype(by_dtype, "float32")
+    layers = cfg.model.n_layers
+    M = math.prod(cfg.model.n_modes[:-1]) * (cfg.model.n_modes[-1] // 2 + 1)
+    hidden = cfg.model.hidden_channels
+    want_shapes = {(kind, (WELL_BATCH, hidden, hidden, M)) for kind in ("fwd", "dx", "dw")}
+    expected = {"mode_contraction": layers * (WELL_EPOCHS * steps + evals),
+                "mode_contraction_dx": layers * WELL_EPOCHS * steps,
+                "mode_contraction_dw": layers * WELL_EPOCHS * steps}
+    log(f"well: {len(windows)} windows of {WELL_TRAIN_TRAJ} trajectories ({n_in} input steps, "
+        f"time as channels, one constant field: {channels} channels) and {WELL_TEST_TRAJ} "
+        f"trajectories of {n_in + WELL_ROLLOUT} steps at {WELL_RES}³ made in {data_s:.1f} s; "
+        f"{WELL_EPOCHS} epochs of {steps} loop steps in {train_s:.1f} s: train losses "
+        f"{record.metrics}, {step_ms:.3f} ms a step (last epoch); the rollout of "
+        f"{WELL_ROLLOUT} steps in {rollout_s:.2f} s: {rollout} (horizon "
+        f"{trainer._last_rollout_T}); launches {launches} at {sorted(shapes)}; peak "
+        f"{peak_mib:.0f} MiB")
+    values = [*record.metrics, *rollout.values()]
+    if not (all(map(math.isfinite, values)) and len(record.metrics) == WELL_EPOCHS
+            and record.metrics[-1] < record.metrics[0]
+            and trainer._last_rollout_T == WELL_ROLLOUT):
+        raise AssertionError(f"well: non-finite or not falling: {record.metrics}, {rollout}")
+    if launches != expected or shapes != want_shapes:
+        raise AssertionError(f"well: launched {launches} at {sorted(shapes)}, expected "
+                             f"{expected} at {sorted(want_shapes)}")
+
+    # one step and one rolled-out batch, card against CPU from the same
+    # weights: the step from the seeded init, the rollout from the trained
+    trained = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    window = {k: np.stack([w[k] for w in windows[:WELL_BATCH]]) for k in windows[0]}
+    test = {k: np.stack([t[k] for t in trajectories[:WELL_BATCH]]) for k in trajectories[0]}
+
+    def on(device, weights):
+        m = well_model(device, channels)
+        m.load_state_dict(weights)
+        return m, Trainer(model=m, n_epochs=1, data_processor=processor, device=device)
+
+    t1 = time.perf_counter()
+    found = {}
+    for device in ("cuda", "cpu"):
+        m, tr = on(device, state)
+        loss = tr.train([window], {}, build_optimizer(OPT, 1), training_loss=h1)["train_err"]
+        grads = {n: p.grad.detach().float().cpu() for n, p in m.named_parameters()}
+        m, tr = on(device, trained)
+        found[device] = (loss, grads, tr.evaluate(None, [test], "well", mode="autoregression",
+                                                  eval_losses={"h1": h1, "l2": l2}))
+    (loss_gpu, grads_gpu, roll_gpu), (loss_cpu, grads_cpu, roll_cpu) = found["cuda"], found["cpu"]
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err = grad_errors(grads_gpu, grads_cpu)
+    worst = max(grad_err, key=grad_err.get)
+    roll_err = {k: abs(roll_gpu[k] - v) / abs(v) for k, v in roll_cpu.items()}
+    log(f"well: card vs CPU in {time.perf_counter() - t1:.1f} s: one step of batch "
+        f"{WELL_BATCH}: loss rel {loss_err:.2e} (tol {STEP_LOSS_TOL:.0e}), gradients max "
+        f"{grad_err[worst]:.2e} ({worst}, tol {STEP_GRAD_TOL:.0e}); one rolled-out batch of "
+        f"{WELL_ROLLOUT} steps from the trained weights: {roll_gpu} vs {roll_cpu} (rel "
+        f"{roll_err}, tol {WELL_ROLLOUT_TOL:.0e})")
+    if not (loss_err <= STEP_LOSS_TOL and grad_err[worst] <= STEP_GRAD_TOL
+            and max(roll_err.values()) <= WELL_ROLLOUT_TOL):
+        raise AssertionError(f"well: card and CPU differ: loss {loss_err}, gradients "
+                             f"{grad_err[worst]} ({worst}), rollout {roll_err}")
+    profiled = profile_window(
+        f"well: {WELL_PROFILE_STEPS} loop steps of batch {WELL_BATCH} at {WELL_RES}³",
+        lambda: Trainer(model=model, n_epochs=1, data_processor=processor, device="cuda").train(
+            DataLoader(DictDataset(windows[:WELL_PROFILE_STEPS * WELL_BATCH]), WELL_BATCH), {},
+            transform, training_loss=h1))
+    idle = 1 - profiled["device_ms"] / profiled["wall_ms"] if "device_ms" in profiled else None
+    phase_s = time.perf_counter() - t0
+    log(f"well: phase in {phase_s:.1f} s; step {step_ms:.3f} ms, idle share "
+        f"{'not measured' if idle is None else f'{idle:.1%}'}, peak {peak_mib:.0f} MiB, the "
+        f"rollout {rollout_s:.2f} s")
+    return {"launches": launches, "launches_by_dtype": by_dtype, "train_errs": record.metrics,
+            "rollout": rollout, "rollout_s": rollout_s, "step_ms": step_ms, "idle": idle,
+            "peak_mib": peak_mib, "step_loss_rel_err": loss_err,
+            "step_grad_rel_l2_max": grad_err[worst], "rollout_rel_err": roll_err,
+            "phase_s": phase_s}
+
+
 def dist_script_run(label: str, flags: list, zero: bool = False) -> dict:
     """(25a/b) one train_navier_stokes run on the loader loop: its metrics,
     the trained parameters, the launches, the step ms and the peak memory;
@@ -5540,14 +5772,260 @@ def dist_model_rank(rank: int, world: int, meta: dict, device: str, x, y, state,
     return out
 
 
+def galore_axis_transform():
+    """Tensor-GaLore for 25(d): rank GALORE_AXIS_RANK, phase 24's rate, and
+    every leaf of two or more dims projected (``min_dim_size_to_project=2``:
+    the spectral weights' real/imaginary axis of 2 counts, as in JAX)."""
+    from neuraloperator_tpu_torch.training import step_lr, tensor_galore_adamw
+
+    return tensor_galore_adamw(step_lr(3e-5, 50, 0.5, 1), rank=GALORE_AXIS_RANK,
+                               update_proj_gap=GALORE_GAP, weight_decay=1e-4,
+                               min_dim_size_to_project=2)
+
+
+def galore_state_bytes(opt) -> int:
+    """The bytes of a Tensor-GaLore optimizer's state held by this rank."""
+    return sum(t.numel() * t.element_size() for st in opt.state.values()
+               for t in (*st["factors"], st["m"], st["v"]))
+
+
+def galore_known(opt, names) -> dict:
+    """Why each of the projected leaves ``names`` of the whole optimizer
+    ``opt`` (after its step) may move by more than rounding: a matrix both
+    of whose factors truncate (its core is diagonal, and Adam turns the
+    rounding off the diagonal into steps of full size), or a truncated mode
+    whose kept singular values of the step's gradient lie within
+    GALORE_AXIS_SPREAD of its largest of each other, of the first one
+    dropped or of zero (a rounding of 1e-7 of the gradient turns their
+    vectors by up to 1e-7 / that spacing, and Adam makes each direction a
+    step of full size)."""
+    from neuraloperator_tpu_torch.training.tensor_galore import _unfold
+
+    params = dict(zip(opt.names, opt.param_groups[0]["params"]))
+    out = {}
+    for name in names:
+        p = params[name]
+        factors = opt.state[p]["factors"]
+        cut = [k for k, u in enumerate(factors) if u.shape[1] < p.shape[k]]
+        if p.ndim == 2 and len(cut) == 2:
+            out[name] = "a matrix truncated on both sides (a diagonal core)"
+            continue
+        for k in cut:
+            s = torch.linalg.svdvals(_unfold(p.grad.double(), k))
+            s = torch.cat([s / s[0], s.new_zeros(1)])[:factors[k].shape[1] + 1]
+            spacing = float((s[:-1] - s[1:]).min())
+            if spacing < GALORE_AXIS_SPREAD:
+                out[name] = (f"mode {k}'s kept singular values lie {spacing:.1e} apart (of "
+                             f"the largest)")
+    return out
+
+
+def galore_stepper(meta, state, device, processor, batch, mesh=None, how=None):
+    """(model, optimizer, step) of the flagship from ``state`` under
+    ``galore_axis_transform``: whole (``how`` None), its slices at the
+    mesh's model size (``"model"``) or its state cut over the mesh's data
+    ranks (``"zero"``); ``step()`` is one Trainer step on ``batch``."""
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.models import model_from_metadata
+    from neuraloperator_tpu_torch.parallel import mesh as mesh_lib
+    from neuraloperator_tpu_torch.parallel.zero import bind_zero
+    from neuraloperator_tpu_torch.training import Trainer
+
+    model = model_from_metadata(meta, device=device)
+    model.load_state_dict(state)
+    trainer = Trainer(model=model, n_epochs=1, data_processor=processor, device=device,
+                      mesh=mesh)
+    if how == "model":
+        mesh_lib.shard_params(model, mesh)
+        opt = galore_axis_transform().bind(model.named_parameters(),
+                                           model_parallel=mesh_lib.model_parallel_layout(model))
+    elif how == "zero":
+        opt = bind_zero(galore_axis_transform(), model.named_parameters(), mesh)
+    else:
+        opt = galore_axis_transform().bind(model.named_parameters())
+    trainer.optimizer = opt
+    step = trainer._build_train_step(H1Loss(d=2))
+    put = trainer._put(batch)
+    return model, opt, lambda: step(put, 1.0)
+
+
+def galore_lockstep(sharded, whole, gather) -> list:
+    """GALORE_AXIS_STEPS steps of a sharded Tensor-GaLore run (``sharded``:
+    (model, optimizer, step)) in lockstep with one rank's whole-leaf run
+    (``whole``): before each step the whole run takes the sharded run's
+    parameters (``gather()``, whole) and state (its ``state_dict``, the
+    whole tree). Each step's losses and its largest update error per leaf
+    (against the larger of the leaf's update norm and 1% of the whole
+    update's), leaving out the leaves past GALORE_UPDATE_TOL that
+    ``galore_known`` names."""
+    (_, opt, step), (wmodel, wopt, wstep) = sharded, whole
+    out = []
+    for s in range(GALORE_AXIS_STEPS):
+        before = {k: v.detach().clone() for k, v in gather().items()}
+        wmodel.load_state_dict(before)
+        wopt.load_state_dict(opt.state_dict())
+        loss, whole_loss = float(step()), float(wstep())
+        after = gather()
+        names = [n for n, _ in wmodel.named_parameters()]
+        update = {n: (after[n].double() - before[n].double()).cpu() for n in names}
+        whole_update = {n: (p.detach().double() - before[n].double()).cpu()
+                        for n, p in wmodel.named_parameters()}
+        err = grad_errors(update, whole_update)
+        known = galore_known(wopt, [n for n, e in err.items() if not e <= GALORE_UPDATE_TOL])
+        others = {n: e for n, e in err.items() if n not in known}
+        worst = max(others, key=others.get)
+        out.append({"refresh": s % GALORE_GAP == 0, "loss": loss, "whole_loss": whole_loss,
+                    "loss_rel_err": abs(loss - whole_loss) / abs(whole_loss),
+                    "update_rel_max": others[worst], "update_worst": worst,
+                    "known": {n: (err[n], why) for n, why in known.items()}})
+    return out
+
+
+def dist_galore_rank(rank: int, world: int, meta: dict, device: str, x, y, state) -> dict:
+    """(25d) Tensor-GaLore on one rank of two: at mesh (data 1, model 2) on
+    the spectral weights' slices, and under ZeRO at (data 2, model 1), each
+    in lockstep (``galore_lockstep``) with one rank's whole-leaf run in this
+    process from the same weights; the factors this rank holds, its state's
+    bytes and the whole run's."""
+    import gc
+
+    from neuraloperator_tpu_torch.data.transforms import load_data_processor
+    from neuraloperator_tpu_torch.parallel import mesh as mesh_lib
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+        device = torch.device("cuda", 0)
+    processor = load_data_processor(FLAGSHIP)
+    batch = {"x": x, "y": y}
+    whole = galore_stepper(meta, state, device, processor, batch)
+    out = {}
+    for how, size in (("model", DIST_MODEL_SIZE), ("zero", 1)):
+        mesh = mesh_lib.init(size, device=device)
+        sharded = galore_stepper(meta, state, device, processor, batch, mesh, how)
+        model, opt = sharded[0], sharded[1]
+
+        def gather(model=model):
+            return mesh_lib.gather_state_dict(model)
+
+        t0 = time.perf_counter()
+        steps = galore_lockstep(sharded, whole, gather)
+        out[how] = {"steps": steps, "s": time.perf_counter() - t0, "mesh": repr(mesh),
+                    "optimizer": type(opt).__name__,
+                    "sliced": sorted(getattr(model, "model_parallel_params", None) or ()),
+                    "projected": sorted(n for n, p in zip(opt.names,
+                                                          opt.param_groups[0]["params"])
+                                        if opt.state[p]["factors"]),
+                    "zero_cut": opt.zero_group is not None,
+                    "state_bytes": galore_state_bytes(opt),
+                    "whole_state_bytes": galore_state_bytes(whole[1]),
+                    "factors": {f"{n}.{k}": f.detach().cpu()
+                                for n, p in zip(opt.names, opt.param_groups[0]["params"])
+                                for k, f in enumerate(opt.state[p]["factors"])}}
+        if how == "zero":
+            out[how].pop("factors")  # each rank holds its cut of them
+        del sharded, model, opt
+        gc.collect()
+    return out
+
+
+def galore_axis(ranks: list) -> dict:
+    """(25d) the checks of ``dist_galore_rank``'s two ranks: every step's loss
+    within STEP_LOSS_TOL and each leaf's update within GALORE_UPDATE_TOL of
+    one rank's whole-leaf step, but for known differences, which may not be
+    a sliced spectral weight; on the model axis both ranks hold the same
+    factors, to the bit; under ZeRO each holds less state than the whole."""
+    for how in ("model", "zero"):
+        runs = [r[how] for r in ranks]
+        for r, run in enumerate(runs):
+            for s, step in enumerate(run["steps"]):
+                sliced_known = sorted(set(step["known"]) & set(run["sliced"]))
+                if not (step["loss_rel_err"] <= STEP_LOSS_TOL
+                        and step["update_rel_max"] <= GALORE_UPDATE_TOL and not sliced_known):
+                    raise AssertionError(f"distribution: (d) GaLore {how}, rank {r}, step "
+                                         f"{s + 1} departs from one rank's whole step: {step}")
+        if how == "model":
+            unequal = [k for k, f in runs[0]["factors"].items()
+                       if not torch.equal(f, runs[1]["factors"][k])]
+            sliced = runs[0]["sliced"]
+            if (unequal or len(sliced) != flagship_meta()["init_kwargs"]["n_layers"]
+                    or not set(sliced) <= set(runs[0]["projected"])):
+                raise AssertionError(f"distribution: (d) GaLore's factors differ between the "
+                                     f"ranks: {unequal[:5]}; sliced {sliced}, projected "
+                                     f"{runs[0]['projected']}")
+        elif not (all(run["zero_cut"] and run["state_bytes"] < run["whole_state_bytes"]
+                      for run in runs)):
+            raise AssertionError(f"distribution: (d) GaLore under ZeRO does not cut its state: "
+                                 f"{[(run['state_bytes'], run['whole_state_bytes']) for run in runs]}")
+        log(f"distribution: (d) Tensor-GaLore (rank {GALORE_AXIS_RANK}, a refresh every "
+            f"{GALORE_GAP} steps) {'at model size ' + str(DIST_MODEL_SIZE) if how == 'model' else 'under ZeRO at data size 2'}, "
+            f"{GALORE_AXIS_STEPS} steps in lockstep with one rank's whole-leaf step in "
+            f"{[round(run['s'], 1) for run in runs]} s: losses "
+            f"{[[st['loss'] for st in run['steps']] for run in runs]}, against the whole step "
+            f"rel {[[st['loss_rel_err'] for st in run['steps']] for run in runs]} (tol "
+            f"{STEP_LOSS_TOL:.0e}); each leaf's update, max "
+            f"{[[(st['update_rel_max'], st['update_worst']) for st in run['steps']] for run in runs]}"
+            f" (tol {GALORE_UPDATE_TOL:.0e}); known differences "
+            f"{[[st['known'] for st in run['steps']] for run in runs]}; "
+            + (f"factors equal on both ranks to the bit ({len(runs[0]['factors'])} factors of "
+               f"{len(runs[0]['projected'])} projected leaves, the {len(runs[0]['sliced'])} "
+               f"sliced spectral weights among them); "
+               if how == "model" else "")
+            + f"optimizer state bytes per rank {[run['state_bytes'] for run in runs]} against "
+            f"the whole {runs[0]['whole_state_bytes']}")
+    return {how: [{k: v for k, v in r[how].items() if k != "factors"} for r in ranks]
+            for how in ("model", "zero")}
+
+
+def galore_zero_world_of_one(in_std: float) -> dict:
+    """(25d) Tensor-GaLore through the Trainer under ZeRO on NCCL at world size
+    1 (which cuts nothing) against the plain Trainer from the same weights,
+    GALORE_AXIS_STEPS steps: the losses and parameters to the bit."""
+    from neuraloperator_tpu_torch.data.transforms import load_data_processor
+    from neuraloperator_tpu_torch.losses import H1Loss
+    from neuraloperator_tpu_torch.parallel import mesh as mesh_lib
+    from neuraloperator_tpu_torch.training import Trainer
+
+    x, y = make_pairs(TRAIN_BATCH, in_std, SEED + 8)
+    mesh = mesh_lib.init(1, device="cuda")
+    processor = load_data_processor(FLAGSHIP)
+    reset_launches()
+    runs = {}
+    for zero in (False, True):
+        model = seeded_flagship("cuda", SEED + 7)
+        record = RecordingScheduler()
+        trainer = Trainer(model=model, n_epochs=GALORE_AXIS_STEPS, data_processor=processor,
+                          device="cuda", mesh=mesh if zero else None, zero_sharding=zero)
+        trainer.train([{"x": x, "y": y}], {}, galore_axis_transform(), scheduler=record,
+                      training_loss=H1Loss(d=2))
+        runs[zero] = {"losses": record.metrics, "optimizer": type(trainer.optimizer).__name__,
+                      "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+        del trainer, model
+    launches, by_dtype = read_launches(), read_launches_by_dtype()
+    unequal = [n for n, p in runs[False]["params"].items()
+               if not torch.equal(p, runs[True]["params"][n])]
+    log(f"distribution: (d) Tensor-GaLore under ZeRO on {torch.distributed.get_backend()} at "
+        f"world size 1 ({runs[True]['optimizer']}), {GALORE_AXIS_STEPS} steps against the "
+        f"plain Trainer's: losses {runs[True]['losses']} vs {runs[False]['losses']}, "
+        f"parameters unequal {unequal[:5]} of {len(runs[False]['params'])}; launches {launches}")
+    if unequal or runs[True]["losses"] != runs[False]["losses"] or \
+            len(runs[True]["losses"]) != GALORE_AXIS_STEPS:
+        raise AssertionError(f"distribution: (d) GaLore under ZeRO at world size 1 departs "
+                             f"from the plain loop: {unequal[:5]}, {runs[True]['losses']} vs "
+                             f"{runs[False]['losses']}")
+    return {"launches": launches, "launches_by_dtype": by_dtype,
+            "losses": runs[True]["losses"]}
+
+
 def dist_ranks(rank: int, world: int, x, y, state, loss_one, grads_one,
                save_root: str) -> dict:
-    """(25c, d) one rank of the two on the card: (c), then (d) in the same
-    process (one spawn for both)."""
+    """(25c, d) one rank of the two on the card: (c), then (d) and its
+    Tensor-GaLore runs in the same process (one spawn for all)."""
     data = dist_rank_step(rank, world, x, y, state, loss_one, grads_one)
     model = dist_model_rank(rank, world, flagship_meta(), "cuda", x, y, state, loss_one,
                             grads_one, save_root)
-    return {"c": data, "d": model}
+    galore = dist_galore_rank(rank, world, flagship_meta(), "cuda", x, y, state)
+    return {"c": data, "d": model, "g": galore}
 
 
 def model_axis(ranks: list, ranks_s: float, spawned: float, save_root: str,
@@ -5661,9 +6139,10 @@ def distribution() -> dict:
     log(f"distribution: (a) and (b) equal to the plain run to the bit (metrics and "
         f"{len(plain['params'])} parameters); step ms plain {plain['step_ms']:.3f}, "
         f"distributed {flagged['step_ms']:.3f}, ZeRO {zero['step_ms']:.3f}")
+    in_std = float(load_data_processor(FLAGSHIP).in_normalizer.std.ravel()[0])
+    galore_zero = galore_zero_world_of_one(in_std)
 
     # (c) two ranks on the card against one rank on the same 8 rows
-    in_std = float(load_data_processor(FLAGSHIP).in_normalizer.std.ravel()[0])
     x, y = make_pairs(TRAIN_BATCH, in_std, SEED + 5)
     model = seeded_flagship("cuda", SEED + 7)
     state = {k: v.cpu() for k, v in model.state_dict().items()}
@@ -5677,6 +6156,7 @@ def distribution() -> dict:
         ranks_s = time.perf_counter() - t1
         axis = model_axis([r["d"] for r in both], ranks_s, spawned, save_root,
                           both[0]["c"]["peak_mib"])
+        galore = galore_axis([r["g"] for r in both])
     finally:
         shutil.rmtree(save_root, ignore_errors=True)
     ranks = [r["c"] for r in both]
@@ -5704,7 +6184,7 @@ def distribution() -> dict:
     # end the world of one: nothing after this phase runs distributed
     dist.destroy_process_group()
     phase_s = time.perf_counter() - t0
-    runs = (plain, flagged, zero)
+    runs = (plain, flagged, zero, galore_zero)
     launches = {k: sum(r["launches"][k] for r in runs) for k in plain["launches"]}
     by_dtype = {k: {dt: sum(r["launches_by_dtype"][k][dt] for r in runs)
                     for dt in plain["launches_by_dtype"][k]}
@@ -5716,6 +6196,7 @@ def distribution() -> dict:
             "peak_mib": {"plain": plain["peak_mib"], "distributed": flagged["peak_mib"],
                          "zero": zero["peak_mib"]},
             "two_ranks": per_rank, "two_ranks_s": ranks_s, "model_axis": axis,
+            "galore": {"zero_world_of_one": galore_zero["losses"], **galore},
             "phase_s": phase_s}
 
 
@@ -5876,6 +6357,7 @@ def main() -> None:
     gno_run = gno()
     otno_run = otno()
     patching_run = patching(recipe_run)
+    well_run = well()
     distribution_run = distribution()
 
     axis_ranks = distribution_run["model_axis"]["ranks"]
@@ -5889,7 +6371,7 @@ def main() -> None:
                                      "sfno": sfno_run, "mhd_multivar": mhd_multivar_run,
                                      "burgers": burgers_run, "gno": gno_run,
                                      "otno": otno_run, "patching": patching_run,
-                                     "distribution": distribution_run})
+                                     "well": well_run, "distribution": distribution_run})
     for k in kernels:
         k["edge_checks"] = edges[k["name"]]
     kernels[0]["patched_eval_check"] = patched_eval_k1
@@ -5939,7 +6421,9 @@ def main() -> None:
         f"{otno_run['result']['test_l2']:.6f}, loop step {otno_run['step_ms']:.3f} ms, OT maps "
         f"{otno_run['ot_maps']['seconds']['torch_cuda']:.3f} s a body on the card; patched "
         f"recipe train_err {patching_run['train_err']}, step ms {patching_run['step_ms']}, "
-        f"peak {patching_run['peak_mib']:.0f} MiB; distribution step ms "
+        f"peak {patching_run['peak_mib']:.0f} MiB; well train losses "
+        f"{well_run['train_errs']}, step {well_run['step_ms']:.3f} ms, rollout "
+        f"{well_run['rollout']} in {well_run['rollout_s']:.2f} s; distribution step ms "
         f"{distribution_run['step_ms']}, two ranks "
         f"{[(r['step_ms'], r['peak_mib'], r['zero_peak_mib']) for r in distribution_run['two_ranks']]}"
         f", model axis (step ms, peak MiB, whole step's peak) "

@@ -1,4 +1,4 @@
-"""Device selection and the error for options not ported yet."""
+"""Device selection for the entry points."""
 
 from typing import Union
 
@@ -20,9 +20,3 @@ def resolve_device(device: Device) -> torch.device:
         )
     return device
 
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for an option of the JAX package the port does not have yet."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP: {item})"
-    )

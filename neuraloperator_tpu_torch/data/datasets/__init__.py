@@ -18,13 +18,24 @@ from .pt_dataset import PTDataset, load_pt_as_numpy
 from .spherical_swe import SphericalSWEDataset, SphericalSWESolver, load_spherical_swe
 from .synthetic_cfd import generate_cfd_sample, load_synthetic_cfd
 from .tensor_dataset import DataLoader, DictDataset, GeneralTensorDataset, TensorDataset
+from .the_well_dataset import ActiveMatterDataset, MHD64Dataset, WellDataset
+from .web_utils import (
+    calculate_md5,
+    check_integrity,
+    check_md5,
+    download_from_url,
+    download_from_zenodo_record,
+)
+from .zarr_dataset import ZarrDataset
 
-__all__ = ["BurgersDataset", "CFDDataProcessor", "CarCFDDataset", "CarOTDataset",
+__all__ = ["ActiveMatterDataset", "BurgersDataset", "CFDDataProcessor", "CarCFDDataset", "CarOTDataset",
            "DarcyDataset", "DataLoader", "DictDataset", "GeneralTensorDataset", "H5pyDataset",
-           "MeshDataModule",
+           "MHD64Dataset", "MeshDataModule",
            "NavierStokesDataset", "NonlinearPoissonDataset", "OTDataModule",
            "PTDataset", "PrefetchLoader", "PoissonGINODataProcessor", "SphericalSWEDataset",
-           "SphericalSWESolver", "TensorDataset", "generate_cfd_sample",
+           "SphericalSWESolver", "TensorDataset", "WellDataset", "ZarrDataset",
+           "calculate_md5", "check_integrity", "check_md5", "download_from_url",
+           "download_from_zenodo_record", "generate_cfd_sample",
            "generate_latent_queries", "generate_output_queries", "load_burgers_1d",
            "load_car_ot", "load_darcy_flow_small", "load_darcy_pt",
            "load_mini_burgers_1dtime", "load_mini_car", "load_navier_stokes_pt",

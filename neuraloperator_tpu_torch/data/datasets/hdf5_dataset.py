@@ -59,3 +59,4 @@ class H5pyDataset:
 
 
 __all__ = ["H5pyDataset"]
+from .zarr_dataset import ZarrDataset  # noqa: E402,F401

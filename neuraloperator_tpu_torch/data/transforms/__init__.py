@@ -8,9 +8,11 @@ from .data_processors import (
 )
 from .normalizers import DictUnitGaussianNormalizer, UnitGaussianNormalizer
 from .patching_transforms import MGPatchingTransform, MGPTensorDataset, RandomMGPatch
+from .the_well_data_processors import TheWellDataProcessor
 
 __all__ = ["CompositeTransform", "DataProcessor", "DefaultDataProcessor", "DictTransform",
            "DictUnitGaussianNormalizer",
            "IncrementalDataProcessor", "MGPTensorDataset", "MGPatchingDataProcessor",
-           "MGPatchingTransform", "RandomMGPatch", "Transform", "UnitGaussianNormalizer",
+           "MGPatchingTransform", "RandomMGPatch", "TheWellDataProcessor", "Transform",
+           "UnitGaussianNormalizer",
            "load_data_processor"]

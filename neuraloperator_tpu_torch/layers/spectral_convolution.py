@@ -78,6 +78,16 @@ from .resample import resample
 MAX_DFT_AXIS = 512
 
 
+def to_real_storage(c: torch.Tensor) -> torch.Tensor:
+    """A complex tensor stacked into real storage of shape (2, ...)."""
+    return torch.stack([c.real, c.imag])
+
+
+def to_complex(storage: torch.Tensor) -> torch.Tensor:
+    """(2, ...) real storage as a complex tensor."""
+    return torch.complex(storage[0], storage[1])
+
+
 def halve_last_mode(n_modes: Sequence[int], complex_data: bool) -> List[int]:
     """rfft redundancy: keep ``m//2 + 1`` modes along the last dim."""
     n_modes = [int(m) for m in (

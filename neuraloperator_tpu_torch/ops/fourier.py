@@ -397,6 +397,14 @@ def _center_slice(start: int) -> slice:
     return slice(start // 2, -start // 2)
 
 
+def reference_weight_slice(start: int, is_last_real: bool) -> slice:
+    """:func:`resolve_weight_slices` for one axis: the last real axis keeps
+    its low modes, any other its centred ones."""
+    if is_last_real:
+        return slice(None, -start) if start else slice(None)
+    return _center_slice(start)
+
+
 def irfftn_pocketfft(spec: torch.Tensor, s: Sequence[int], norm: str = "backward") -> torch.Tensor:
     """``numpy.fft.irfftn(spec, s, norm=norm)`` over the last ``len(s)`` axes, for a
     spectrum that is not Hermitian, where ``spec`` already has the sizes

@@ -26,4 +26,4 @@ from .distributed_gno import (  # noqa: F401
 )
 from .distributed_sht import DistributedSphericalConv, distributed_spherical_conv  # noqa: F401
 from .pipeline import gpipe, pipelined_fno_forward  # noqa: F401
-from .zero import ZeroAdamW, shard_opt_state, zero_specs  # noqa: F401
+from .zero import ZeroAdamW, bind_zero, shard_opt_state, zero_specs  # noqa: F401

@@ -105,6 +105,17 @@ def all_gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def all_gather_into(whole: torch.Tensor, piece: torch.Tensor, dim: int, group) -> None:
+    """Every rank's ``piece`` of ``group`` into ``whole`` along ``dim`` (each
+    rank's piece its equal slice, in rank order), through one buffer of the
+    pieces stacked."""
+    n = dist.get_world_size(group)
+    buf = piece.new_empty((n, *piece.shape))
+    dist.all_gather(list(buf.unbind(0)), piece.contiguous(), group=group)
+    whole.view(*whole.shape[:dim], n, piece.shape[dim], *whole.shape[dim + 1:]).copy_(
+        buf.movedim(0, dim))
+
+
 def own_slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This rank's equal slice of ``x`` along ``dim`` over ``group``."""
     size = dist.get_world_size(group)

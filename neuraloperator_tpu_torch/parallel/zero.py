@@ -32,6 +32,11 @@ over both groups, which changes where it lives, not its numbers.
 (``optimizer.msgpack``: over the data group, then the model group), and
 ``load_state_dict`` takes that tree and keeps this rank's slices, so a
 replicated run and a ZeRO run resume each other, at any model size.
+
+:func:`bind_zero` is what the ``Trainer`` binds under ``zero_sharding``:
+``ZeroAdamW`` for ``adamw(...)``, and for ``tensor_galore_adamw(...)`` a
+``TensorGaLoreAdamW`` that cuts its own state (its factors, its cores'
+moments and its plain leaves' moments, each along JAX's zero dim).
 """
 
 from typing import Dict, Optional
@@ -39,10 +44,10 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
-from .comm import all_gather_along, own_slice
+from .comm import all_gather_along, all_gather_into, own_slice
 from .mesh import DATA_AXIS
 
-__all__ = ["ZeroAdamW", "shard_opt_state", "zero_specs"]
+__all__ = ["ZeroAdamW", "bind_zero", "shard_opt_state", "zero_specs"]
 
 
 def _leaf_spec(shape, n: int, skip: Optional[int] = None) -> Optional[int]:
@@ -82,6 +87,21 @@ def shard_opt_state(opt_state, mesh, axis: str = DATA_AXIS):
     return t.narrow(dim, mesh.data_rank * chunk, chunk).clone()
 
 
+def bind_zero(transform, named_params, mesh, model_parallel=None):
+    """``transform`` bound to ``named_params`` with its state cut over the
+    mesh's data ranks: :class:`ZeroAdamW` for ``adamw(...)``, a
+    ``TensorGaLoreAdamW`` with ``zero_group`` for ``tensor_galore_adamw(...)``
+    (see its docstring); another transform raises ``ValueError``.
+    ``model_parallel``: ``mesh.model_parallel_layout`` of a model-sharded
+    model."""
+    from ..training.tensor_galore import TensorGaLoreTransform
+
+    if isinstance(transform, TensorGaLoreTransform):
+        return transform.bind(named_params, model_parallel=model_parallel,
+                              zero_group=mesh.data_group)
+    return ZeroAdamW(transform, named_params, mesh, model_parallel=model_parallel)
+
+
 class ZeroAdamW:
     """The port's ``AdamW`` of ``transform`` over ``named_params`` with its
     state cut over the mesh's data group (see the module docstring).
@@ -95,8 +115,12 @@ class ZeroAdamW:
     """
 
     def __init__(self, transform, named_params, mesh, model_parallel=None):
-        from ..training.optimizer import AdamW
+        from ..training.optimizer import AdamW, AdamWTransform
 
+        if not isinstance(transform, AdamWTransform):
+            raise ValueError(
+                f"ZeroAdamW cuts the state of adamw(...), not of a {type(transform).__name__} "
+                "(bind_zero binds tensor_galore_adamw(...) with its state cut)")
         self.mesh = mesh
         self.group = mesh.data_group
         n, rank = mesh.shape[DATA_AXIS], mesh.data_rank
@@ -163,11 +187,7 @@ class ZeroAdamW:
             loc.grad = None if p.grad is None else p.grad.narrow(dim, rank * chunk, chunk)
         loss = self.inner.step(closure, lr_scale=lr_scale, generator=generator, value=value)
         for p, dim, loc in self._slices():
-            # every rank's slice into p: one slice-sized buffer per rank
-            buf = loc.new_empty((n, *loc.shape))
-            dist.all_gather(list(buf.unbind(0)), loc.contiguous(), group=self.group)
-            p.view(*p.shape[:dim], n, loc.shape[dim], *p.shape[dim + 1:]).copy_(
-                buf.movedim(0, dim))
+            all_gather_into(p, loc, dim, self.group)
         return loss
 
     def zero_grad(self, set_to_none: bool = True) -> None:

@@ -49,7 +49,8 @@ gradient, and nothing is reduced over the model group; a patching
 processor that scatters its patches over the model ranks takes the model
 group instead, every gradient reduced over it, and the weights whole.
 ``zero_sharding`` cuts the optimizer state over the data ranks
-(``parallel.zero.ZeroAdamW``, bound in place of the replicated optimizer).
+(``parallel.zero.bind_zero``: ``ZeroAdamW`` for AdamW, a Tensor-GaLore
+with its ``zero_group``, bound in place of the replicated optimizer).
 Saves gather the slices to the whole tree, which rank 0 alone writes
 (every rank joins the gathers), and loads cut it again; rank 0 alone
 prints. ``device_dataset`` is refused with a mesh, as in JAX.
@@ -64,7 +65,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .._common import not_ported, resolve_device
+from .._common import resolve_device
 from ..data.transforms import DefaultDataProcessor
 from ..losses import LpLoss
 from ..models import base_model  # a module: base_model imports this package too
@@ -164,9 +165,19 @@ class Trainer:
         stochastic_rounding: bool = False,
         verbose: bool = False,
     ):
-        del log_output  # read only by wandb logging in the JAX Trainer
+        # wandb logging, off when the package is missing (as in JAX): after
+        # each evaluation the metrics and train_err, with log_output the
+        # first evaluation prediction as a wandb.Image
+        self._wandb = None
         if wandb_log:
-            raise not_ported("Trainer wandb_log", "the rest of losses, training and data")
+            try:
+                import wandb
+
+                self._wandb = wandb
+            except ImportError:
+                wandb_log = False
+        self.wandb_log = wandb_log
+        self.log_output = log_output
         self.device = resolve_device(device)
         self.mesh = mesh or (mesh_lib.get_mesh() if use_distributed else None)
         self.zero_sharding = zero_sharding
@@ -487,7 +498,9 @@ class Trainer:
         # its parameters), which advances a shuffling loader by one epoch;
         # drawing it here too gives both trainers the same batches for one seed.
         first_batch = next(iter(train_loader))
-        if "x" not in first_batch or "y" not in first_batch:
+        # a batch in the_well's layout is formatted by TheWellDataProcessor
+        if "output_fields" not in first_batch and ("x" not in first_batch
+                                                   or "y" not in first_batch):
             raise ValueError(f"batches must hold 'x' and 'y', got keys {sorted(first_batch)}")
         if rollout_steps > 1:
             y0 = np.asarray(first_batch["y"])
@@ -512,16 +525,11 @@ class Trainer:
                         p.data = p.data.to(torch.bfloat16)
         layout = mesh_lib.model_parallel_layout(self.model)
         if self.mesh is not None and self.zero_sharding:
-            from ..parallel.zero import ZeroAdamW
+            from ..parallel.zero import bind_zero
 
-            self.optimizer = ZeroAdamW(optimizer, self.model.named_parameters(), self.mesh,
+            self.optimizer = bind_zero(optimizer, self.model.named_parameters(), self.mesh,
                                        model_parallel=layout)
         elif layout is not None:
-            from .optimizer import AdamWTransform
-
-            if not isinstance(optimizer, AdamWTransform):
-                raise not_ported(f"{type(optimizer).__name__} over model-sharded parameters",
-                                 "distribution")
             self.optimizer = optimizer.bind(self.model.named_parameters(),
                                             model_parallel=layout)
         else:
@@ -576,6 +584,14 @@ class Trainer:
             if epoch % self.eval_interval == 0 or epoch == self.n_epochs - 1:
                 eval_metrics = self.evaluate_all(eval_step, test_loaders)
                 all_metrics.update(eval_metrics)
+                if self.wandb_log:
+                    # every rank renders (a sharded forward is collective), rank 0 logs
+                    img = self._render_eval_output(test_loaders) if self.log_output else None
+                    if self.is_writer:
+                        payload = {**eval_metrics, "train_err": train_err}
+                        if img is not None:
+                            payload["eval_output"] = img
+                        self._wandb.log(payload, step=epoch)
                 if self.verbose and self.is_writer:
                     msg = ", ".join(f"{k}={v:.5f}" for k, v in eval_metrics.items())
                     print(f"[{epoch}] time={epoch_time:.2f}s train={train_err:.5f} {msg}")
@@ -597,6 +613,32 @@ class Trainer:
         if saving:
             self._save_state(save_dir, self.n_epochs - 1)
         return all_metrics
+
+    @torch.no_grad()
+    def _render_eval_output(self, test_loaders: Dict):
+        """The first prediction of the first evaluation batch as a
+        ``wandb.Image``: its first channel (first slice of a field of more
+        than two dims), scaled to [0, 1]; None when it cannot be made
+        (logging never stops training)."""
+        if self._wandb is None or not test_loaders:
+            return None
+        try:
+            loader = next(iter(test_loaders.values()))
+            sample = self._put(dict(next(iter(loader))))
+            dp = self.data_processor
+            if dp is not None:
+                sample = dp.preprocess(sample, train=False)
+            self.model.eval()
+            out = self.model(**{k: v for k, v in sample.items() if k != "y"}).float()
+            if dp is not None:
+                out, _ = dp.postprocess(out, sample, train=False)
+            arr = out[0].cpu().numpy()
+            while arr.ndim > 2:
+                arr = arr[0]
+            lo, hi = float(arr.min()), float(arr.max())
+            return self._wandb.Image((arr - lo) / (hi - lo + 1e-12))
+        except Exception:
+            return None
 
     def _save_state(self, save_dir, epoch: int) -> None:
         """``model.msgpack`` and ``optimizer.msgpack``; every rank gathers the

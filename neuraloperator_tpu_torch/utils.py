@@ -1,13 +1,13 @@
 """Small shared utilities (port of ``neuraloperator_tpu/utils.py``):
 parameter counts, the scaling-factor check, the radial energy spectrum,
-ranks, the repository root and a FLOP count.
-
-The JAX module's wandb helpers are not ported (``wandb`` is out of scope).
+ranks, the repository root, a FLOP count and the wandb key helpers
+(``wandb`` is optional: ``wandb_login`` returns False without it).
 ``count_flops`` counts with ``torch.utils.flop_counter.FlopCounterMode``
 where the JAX function asks XLA's cost analysis.
 """
 
 import math
+import os
 from pathlib import Path
 from typing import List, Optional, Union
 
@@ -116,6 +116,40 @@ def get_project_root() -> Path:
     return Path(__file__).parent.parent
 
 
+def get_wandb_api_key(api_key_file="config/wandb_api_key.txt") -> Optional[str]:
+    """The wandb API key: ``WANDB_API_KEY``, else the key file's contents,
+    else None."""
+    key = os.environ.get("WANDB_API_KEY")
+    if key:
+        return key
+    path = Path(api_key_file)
+    return path.read_text().strip() if path.exists() else None
+
+
+def set_wandb_api_key(api_key_file="config/wandb_api_key.txt") -> None:
+    """Set ``WANDB_API_KEY`` from the key file when it is unset and the file exists."""
+    if "WANDB_API_KEY" not in os.environ:
+        try:
+            with open(api_key_file, "r") as f:
+                os.environ["WANDB_API_KEY"] = f.read().strip()
+        except FileNotFoundError:
+            pass
+
+
+def wandb_login(api_key_file="config/wandb_api_key.txt", key=None) -> bool:
+    """Log into wandb with ``key`` or :func:`get_wandb_api_key`'s; False when
+    ``wandb`` is not installed or there is no key."""
+    try:
+        import wandb
+    except ImportError:
+        return False
+    key = key or get_wandb_api_key(api_key_file)
+    if key is None:
+        return False
+    wandb.login(key=key)
+    return True
+
+
 def count_flops(fn, *args, **kwargs) -> dict:
     """FLOPs of one call ``fn(*args, **kwargs)``, counted by
     ``torch.utils.flop_counter.FlopCounterMode`` (matmuls, convolutions and
@@ -132,4 +166,5 @@ def count_flops(fn, *args, **kwargs) -> dict:
 
 __all__ = ["compute_explained_variance", "compute_rank", "compute_stable_rank",
            "count_flops", "count_model_params", "count_tensor_params", "get_project_root",
-           "spectrum_2d", "validate_scaling_factor"]
+           "get_wandb_api_key", "set_wandb_api_key", "spectrum_2d", "validate_scaling_factor",
+           "wandb_login"]

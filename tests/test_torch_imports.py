@@ -151,6 +151,11 @@ def test_port_sources_exist():
         "neuraloperator_tpu_torch/parallel/distributed_sht.py",
         "neuraloperator_tpu_torch/parallel/distributed_gno.py",
         "neuraloperator_tpu_torch/parallel/pipeline.py",
+        "neuraloperator_tpu_torch/data/transforms/the_well_data_processors.py",
+        "neuraloperator_tpu_torch/data/datasets/the_well_dataset.py",
+        "neuraloperator_tpu_torch/data/datasets/zarr_dataset.py",
+        "neuraloperator_tpu_torch/data/datasets/web_utils.py",
+        "neuraloperator_tpu_torch/scripts/login_wandb.py",
     ):
         assert expected in names
     assert (PORT / "csrc/spectral_contraction.cu").exists()

@@ -1,7 +1,8 @@
 """The model axis holding slices (``parallel.mesh.shard_params``), the
-optimizer on slices and the sharded checkpoint (``save/load_training_state_orbax``
-over ``torch.distributed.checkpoint``), at gloo world sizes 2 (data 1 x
-model 2) and 4 (data 2 x model 2) on the CPU, against the JAX package.
+optimizer on slices (AdamW, and Tensor-GaLore also under ZeRO) and the
+sharded checkpoint (``save/load_training_state_orbax`` over
+``torch.distributed.checkpoint``), at gloo world sizes 2 (data 1 x model 2)
+and 4 (data 2 x model 2) on the CPU, against the JAX package.
 
 Each world size is one group of spawned ranks (``parallel.launch.run_ranks``)
 that runs every case once; the tests read their case's results, and the
@@ -51,6 +52,22 @@ LEAVES = {"dense.w_weight": ((2, 4, 8, 6, 5), 2), "dense1d.w_weight": ((2, 4, 8,
 # the gradients' scales: the global norm passes MAX_GRAD_NORM on the first
 # and third steps, not on the second
 GRAD_SCALES, MAX_GRAD_NORM, LR = (3.0, 0.01, 2.0), 1.0, 1e-2
+# Tensor-GaLore on the slices. Through the Trainer: rank 1, so each projected
+# leaf keeps its leading singular vector alone in every truncated mode (a
+# model's gradients here are dominated by one direction, and the vectors of
+# kept singular values that nearly vanish, or nearly tie, are rounding
+# noise that Adam scales to full steps: ROADMAP C), three one-batch epochs
+# with refreshes at steps 1 and 3. On its own: rank 7 on leaves of random
+# gradients (a 5-D and a 4-D spectral layout sliced along their out
+# channels, a matrix keeping one side whole, plain leaves sliced, cut by
+# ZeRO or whole), three steps with the same refreshes.
+GALORE_KW = dict(FNO_KW, hidden_channels=16)
+GALORE = dict(rank=1, update_proj_gap=2, galore_scale=0.25, weight_decay=1e-2,
+              min_dim_size_to_project=2)
+GALORE_LR, GALORE_EPOCHS = 1e-2, 3
+GALORE_LEAVES = {"conv.w_weight": ((2, 8, 16, 6, 5), 2), "conv1d.w_weight": ((2, 4, 8, 6), 2),
+                 "mlp.w0": ((7, 9), None), "mlp.b0": ((7,), None), "skip.w": ((6, 1), None),
+                 "norm.w": ((16,), 0)}
 POLICIES = {"full": dict(max_grad_norm=MAX_GRAD_NORM),
             "factored": dict(factored_second_moment=True, mu_dtype="bf16"),
             "factored8": dict(factored_second_moment=True, mu_dtype="int8")}
@@ -102,6 +119,17 @@ def _jax_transform(policy):
     kw = dict(POLICIES[policy])
     kw["mu_dtype"] = {"bf16": jnp.bfloat16, "int8": "int8", None: None}[kw.get("mu_dtype")]
     return jopt.adamw(jopt.step_lr(LR, 1, 0.5, 2), weight_decay=1e-2, **kw)
+
+
+def _galore_transform(**kw):
+    from neuraloperator_tpu_torch.training import tensor_galore_adamw
+
+    return tensor_galore_adamw(GALORE_LR, **{**GALORE, **kw})
+
+
+def _galore_draws(seed):
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal(s).astype(np.float32) for k, (s, _) in GALORE_LEAVES.items()}
 
 
 def _flat_state(tree, prefix=""):
@@ -157,14 +185,6 @@ def _case_trainer(rank, inputs):
                      "sharded": sorted(model.model_parallel_params),
                      "numel": sum(p.numel() for p in model.parameters()),
                      "state": _flat_state(trainer.optimizer.state_dict())}
-    # Tensor-GaLore cannot take slices (its HOSVD of a slice is not the whole
-    # leaf's): it is refused, not run on whole weights
-    from neuraloperator_tpu_torch.training import tensor_galore_adamw
-
-    with pytest.raises(NotImplementedError, match="distribution"):
-        Trainer(model=_port(FNO_KW, inputs["params"]["dense"]), n_epochs=1, device="cpu",
-                mesh=mesh).train([{"x": inputs["x"], "y": inputs["y"]}], {},
-                                 tensor_galore_adamw(1e-3), training_loss=LpLoss(d=2))
     # replicate() on a sharded model: each slice from data rank 0 of its model rank
     held = dict(model.named_parameters())[out[True]["sharded"][0]]
     before = held.detach().clone()
@@ -253,7 +273,102 @@ def _case_checkpoints(rank, inputs):
     return out
 
 
-CASES = {2: ["shards", "trainer", "optimizer", "checkpoints"], 4: ["trainer"]}
+def _galore_run(inputs, mesh, zero, epochs=GALORE_EPOCHS, save_dir=None, resume=None):
+    """``epochs`` one-batch epochs of the Trainer with Tensor-GaLore on
+    ``mesh``: the last loss, the gathered parameters, the whole state tree,
+    this rank's factors as held and the numbers of values this rank holds."""
+    from neuraloperator_tpu_torch.losses import LpLoss
+    from neuraloperator_tpu_torch.training import Trainer
+
+    model = _port(GALORE_KW, inputs["params"]["galore"])
+    trainer = Trainer(model=model, n_epochs=epochs, device="cpu", mesh=mesh, zero_sharding=zero)
+    metrics = trainer.train([{"x": inputs["x"], "y": inputs["y"]}], {}, _galore_transform(),
+                            training_loss=LpLoss(d=2), save_dir=save_dir,
+                            save_every=None if save_dir is None else 1, resume_from_dir=resume)
+    opt = trainer.optimizer
+    held = {n: (p.numel(), sum(t.numel() for t in [*opt.state[p]["factors"], opt.state[p]["m"],
+                                                      opt.state[p]["v"]]))
+            for n, p in model.named_parameters()}
+    return {"train_err": metrics.get("train_err"), "params": _whole(model),
+            "state": _flat_state(opt.state_dict()), "held": held,
+            "factors": {f"{n}.{k}": f.numpy().copy() for n, p in model.named_parameters()
+                        for k, f in enumerate(opt.state[p]["factors"])},
+            "type": type(opt).__name__}
+
+
+def _case_galore(rank, inputs):
+    """Tensor-GaLore through the Trainer on the slices: at (data 1, model 2)
+    and under ZeRO at (data 2, model 1) on two ranks; at (1, 4) and under
+    ZeRO at (2, 2) on four; a save at model size 2 (or 4) resumed at 4 (or
+    2); and ZeroAdamW's refusal of a transform it cannot cut."""
+    from neuraloperator_tpu_torch.parallel.zero import ZeroAdamW
+
+    world = torch.distributed.get_world_size()
+    mesh = mesh_lib.get_mesh()
+    tmp = inputs["tmp"] / f"galore_{world}"
+    out = {}
+    if world == 2:
+        out["model"] = _galore_run(inputs, mesh, False, save_dir=tmp)
+        with mesh_lib.use_mesh(None):
+            data = mesh_lib.init(model_parallel_size=1, device="cpu")
+        out["zero"] = _galore_run(inputs, data, True)
+        try:
+            ZeroAdamW(_galore_transform(), [("w", torch.nn.Parameter(torch.zeros(2, 2)))], data)
+        except ValueError as e:
+            out["refused"] = str(e)
+    else:
+        with mesh_lib.use_mesh(None):
+            model4 = mesh_lib.init(model_parallel_size=4, device="cpu")
+        out["model"] = _galore_run(inputs, model4, False, save_dir=tmp)
+        out["zero"] = _galore_run(inputs, mesh, True)
+        # the save at model size 4 resumed at (2, 2) under ZeRO: the state
+        # read is the saved tree (no epoch is left, so nothing steps)
+        out["resumed"] = _galore_run(inputs, mesh, True, resume=tmp)
+    return out
+
+
+def _galore_steps(mesh, zero):
+    """GALORE_EPOCHS steps of rank-7 Tensor-GaLore on GALORE_LEAVES' slices of
+    random gradients: the gathered leaves, the whole tree, this rank's
+    factors and the numbers of state values it holds."""
+    from neuraloperator_tpu_torch.parallel import comm
+
+    group = mesh.model_group
+    dims = {k: d for k, (_, d) in GALORE_LEAVES.items()
+            if d is not None and mesh.shape[mesh_lib.MODEL_AXIS] > 1}
+    params = {k: torch.nn.Parameter(comm.own_slice(torch.from_numpy(v), dims[k], group)
+                                    if k in dims else torch.from_numpy(v.copy()))
+              for k, v in _galore_draws(0).items()}
+    opt = _galore_transform(rank=7).bind(list(params.items()), model_parallel=(group, dims),
+                                         zero_group=mesh.data_group if zero else None)
+    for step in range(GALORE_EPOCHS):
+        for k, g in _galore_draws(100 + step).items():
+            g = torch.from_numpy(0.1 * g)
+            params[k].grad = comm.own_slice(g, dims[k], group) if k in dims else g
+        opt.step()
+    return {"params": {k: (comm.all_gather_along(p.detach(), dims[k], group) if k in dims
+                           else p.detach()).numpy() for k, p in params.items()},
+            "state": _flat_state(opt.state_dict()),
+            "factors": {f"{k}.{i}": f.numpy().copy() for k, p in params.items()
+                        for i, f in enumerate(opt.state[p]["factors"])},
+            "held": sum(t.numel() for p in params.values() for t in
+                        [*opt.state[p]["factors"], opt.state[p]["m"], opt.state[p]["v"]])}
+
+
+def _case_galore_optimizer(rank, inputs):
+    """Rank-7 Tensor-GaLore on slices at model size 2 and ZeRO at data size 2
+    (two ranks); at model size 4 and ZeRO at (2, 2) (four)."""
+    world = torch.distributed.get_world_size()
+    with mesh_lib.use_mesh(None):
+        other = mesh_lib.init(model_parallel_size=1 if world == 2 else 4, device="cpu")
+    mesh = mesh_lib.get_mesh()
+    if world == 2:
+        return {"model": _galore_steps(mesh, False), "zero": _galore_steps(other, True)}
+    return {"model": _galore_steps(other, False), "zero": _galore_steps(mesh, True)}
+
+
+CASES = {2: ["shards", "trainer", "optimizer", "checkpoints", "galore", "galore_optimizer"],
+         4: ["trainer", "galore", "galore_optimizer"]}
 
 
 def _ranks_main(rank, world, inputs):
@@ -284,8 +399,10 @@ def inputs(tmp_path_factory):
     params = {name: draw(jax.eval_shape(JFNO(**FNO_KW, **kw).init, jax.random.PRNGKey(2),
                                         x)["params"])
               for name, kw in FACTORIZATIONS.items()}
-    return {"params": params, "x": x,
-            "y": rng.standard_normal((8, 1, 8, 8)).astype(np.float32),
+    y = rng.standard_normal((8, 1, 8, 8)).astype(np.float32)
+    params["galore"] = draw(jax.eval_shape(JFNO(**GALORE_KW).init, jax.random.PRNGKey(2),
+                                           x)["params"])
+    return {"params": params, "x": x, "y": y,
             "tmp": tmp_path_factory.mktemp("model_parallel")}
 
 
@@ -513,3 +630,187 @@ def test_msgpack_save_at_model_size_two_reads_in_jax(world2, inputs):
                             "fno")
     for k, v in model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), want["params"][k], err_msg=k)
+
+
+# ------------------------------------------------------------- Tensor-GaLore on slices
+
+
+def _update_errors(got: dict, want: dict, start: dict) -> dict:
+    """Each leaf's change from ``start`` against JAX's, relative to the larger
+    of the change's norm and 1% of the whole change's (``chip_smoke.py``'s
+    ``grad_errors``)."""
+    total = np.sqrt(sum(np.square(want[k] - start[k]).sum() for k in want))
+    return {k: float(np.linalg.norm(got[k] - want[k]))
+            / max(float(np.linalg.norm(want[k] - start[k])), 1e-2 * total) for k in want}
+
+
+@pytest.fixture(scope="module")
+def jax_galore(inputs):
+    """The JAX Trainer with Tensor-GaLore (its factors sign-fixed as the port
+    fixes them) for GALORE_EPOCHS one-batch epochs on its 8 fake devices, at
+    model size 2 and at model size 4 under ZeRO: the last loss, the
+    parameters and the state tree."""
+    import flax.serialization
+
+    from neuraloperator_tpu.losses import LpLoss as JLp
+    from neuraloperator_tpu.models import FNO as JFNO
+    from neuraloperator_tpu.parallel import mesh as jmesh
+    from neuraloperator_tpu.training import Trainer as JTrainer
+    from neuraloperator_tpu.training import tensor_galore as jgal
+
+    from test_torch_training_extras import _sign_fixed_jax_hosvd
+
+    loader = [{"x": inputs["x"], "y": inputs["y"]}]
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        _sign_fixed_jax_hosvd(mp)
+        for size, zero in ((2, False), (4, True)):
+            trainer = JTrainer(model=JFNO(**GALORE_KW), n_epochs=GALORE_EPOCHS,
+                               mesh=jmesh.init(model_parallel_size=size), zero_sharding=zero)
+            trainer.params = inputs["params"]["galore"]
+            metrics = trainer.train(loader, {}, jgal.tensor_galore_adamw(GALORE_LR, **GALORE),
+                                    training_loss=JLp(d=2))
+            out[size] = {"train_err": metrics["train_err"], "params": _leaves(trainer.params),
+                         "state": _flat_state(_numpy_tree(
+                             flax.serialization.to_state_dict(trainer.opt_state)))}
+    return out
+
+
+# each leaf's update within 1e-3 of JAX's, against the larger of its norm and
+# 1% of the whole update's (PERF.md's bound for GaLore's update, card against
+# CPU): a model rank sums its slice's core in another order, and a data rank
+# its slice of the batch
+GALORE_UPDATE_TOL = 1e-3
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("zero", [False, True])
+def test_tensor_galore_on_slices_matches_jax(world2, world4, jax_galore, inputs, world, zero):
+    """Tensor-GaLore through the Trainer over three steps with refreshes at 1
+    and 3: at model size 2 (world 2) and 4 (world 4), and under ZeRO at
+    data size 2 (world 2) and at (2, 2) (world 4). The loss and each leaf's
+    update are JAX's; the state tree is the JAX ``GaLoreState``, its factors
+    JAX's (sign-fixed) and whole; on the model axis each rank holds its
+    slices alone and the same factors as every other rank, and under ZeRO
+    each rank holds its cut of the state."""
+    ranks = world2 if world == 2 else world4
+    runs = [got["galore"]["zero" if zero else "model"] for got in ranks]
+    ref = jax_galore[2 if world == 2 and not zero or world == 4 and zero else 4]
+    start = _leaves(inputs["params"]["galore"])
+    size = 1 if world == 2 and zero else 2 if world == 4 and zero else world
+    for run in runs:
+        assert run["type"] == "TensorGaLoreAdamW"
+        np.testing.assert_allclose(run["train_err"], ref["train_err"], rtol=1e-5)
+        errors = _update_errors(run["params"], ref["params"], start)
+        worst = max(errors, key=errors.get)
+        assert errors[worst] <= GALORE_UPDATE_TOL, sorted(errors.items(), key=lambda e: -e[1])
+        assert set(run["state"]) == set(ref["state"])
+        for k, v in ref["state"].items():
+            assert run["state"][k].shape == v.shape, k
+            if ".factors." in k:  # orthonormal columns: 1e-5 of 1
+                np.testing.assert_allclose(run["state"][k], v, rtol=0, atol=1e-5, err_msg=k)
+        np.testing.assert_array_equal(run["state"]["count"], GALORE_EPOCHS)
+        for name, (numel, state) in run["held"].items():
+            sliced = name.endswith("w_weight") and size > 1
+            assert numel * (size if sliced else 1) == start[name].size, name
+        # every rank's whole tree is the same, to the bit
+        for k, v in runs[0]["state"].items():
+            np.testing.assert_array_equal(run["state"][k], v, err_msg=k)
+    whole = sum(v.size for k, v in ref["state"].items() if k != "count")
+    held = [sum(s for _, s in run["held"].values()) for run in runs]
+    if zero:
+        assert max(held) < whole
+    else:  # the factors and the core moments replicated over the model group
+        for run in runs:
+            for k, f in run["factors"].items():
+                np.testing.assert_array_equal(f, runs[0]["factors"][k], err_msg=k)
+        assert held == [whole] * len(runs)
+
+
+def test_zero_refuses_a_transform_it_cannot_cut(world2):
+    """``ZeroAdamW`` given ``tensor_galore_adamw(...)`` raises a ValueError that
+    names it (it used to fail inside AdamW with a TypeError on ``rank``); the
+    Trainer's ZeRO binds Tensor-GaLore with its state cut instead (the test
+    above)."""
+    for got in world2:
+        assert "TensorGaLoreTransform" in got["galore"]["refused"]
+
+
+def test_tensor_galore_saves_at_one_model_size_and_resumes_at_another(world2, world4, inputs):
+    """The state saved at model size 4 resumes at (data 2, model 2) under
+    ZeRO: the parameters and the whole tree to the bit. The save at model
+    size 2 is the JAX package's ``GaLoreState``: JAX's
+    ``load_training_state`` reads it to the bit."""
+    import flax.serialization
+
+    from neuraloperator_tpu.training import tensor_galore as jgal
+    from neuraloperator_tpu.training import training_state as jts
+
+    for got in world4:
+        saved, resumed = got["galore"]["model"], got["galore"]["resumed"]
+        assert resumed["train_err"] is None  # no epoch left to train
+        for k, v in saved["params"].items():
+            np.testing.assert_array_equal(resumed["params"][k], v, err_msg=k)
+        assert set(resumed["state"]) == set(saved["state"])
+        for k, v in saved["state"].items():
+            np.testing.assert_array_equal(resumed["state"][k], v, err_msg=k)
+    want = world2[0]["galore"]["model"]
+    params = inputs["params"]["galore"]
+    tx = jgal.tensor_galore_adamw(GALORE_LR, **GALORE)
+    jparams, jstate, epoch = jts.load_training_state(inputs["tmp"] / "galore_2", "model",
+                                                     params, tx.init(params))
+    assert epoch == GALORE_EPOCHS - 1
+    for k, v in _leaves(jparams).items():
+        np.testing.assert_array_equal(v, want["params"][k], err_msg=k)
+    got = _flat_state(_numpy_tree(flax.serialization.to_state_dict(jstate)))
+    assert set(got) == set(want["state"])
+    for k, v in want["state"].items():
+        np.testing.assert_array_equal(np.asarray(got[k]), v, err_msg=k)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("zero", [False, True])
+def test_tensor_galore_optimizer_on_slices_matches_jax(monkeypatch, world2, world4, world, zero):
+    """Rank-7 Tensor-GaLore over three steps of random gradients (refreshes at
+    1 and 3) at model size 2 (world 2) and 4 (world 4), and under ZeRO at
+    data size 2 (world 2) and at (2, 2) (world 4), against JAX's
+    transformation on the whole leaves with its factors sign-fixed: the
+    parameters within ``atol=1e-6`` (the bound of
+    ``tests/test_torch_training_extras.py::test_tensor_galore_matches_jax``),
+    the whole factors within 1e-5, the tree JAX's; on the model axis every
+    rank holds the same factors, under ZeRO less state than the whole."""
+    import flax.serialization
+    import jax.numpy as jnp
+    import optax
+
+    from neuraloperator_tpu.training import tensor_galore as jgal
+
+    from test_torch_training_extras import _sign_fixed_jax_hosvd
+
+    _sign_fixed_jax_hosvd(monkeypatch)
+    tx = jgal.tensor_galore_adamw(GALORE_LR, **{**GALORE, "rank": 7})
+    params = {k: jnp.asarray(v) for k, v in _galore_draws(0).items()}
+    state = tx.init(params)
+    for step in range(GALORE_EPOCHS):
+        grads = {k: jnp.asarray(0.1 * g) for k, g in _galore_draws(100 + step).items()}
+        updates, state = tx.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+    want = _flat_state(_numpy_tree(flax.serialization.to_state_dict(state)))
+    runs = [got["galore_optimizer"]["zero" if zero else "model"]
+            for got in (world2 if world == 2 else world4)]
+    for run in runs:
+        for k, w in params.items():
+            np.testing.assert_allclose(run["params"][k], np.asarray(w), rtol=0, atol=1e-6,
+                                       err_msg=k)
+        assert set(run["state"]) == set(want)
+        for k, w in want.items():
+            assert run["state"][k].shape == w.shape, k
+            if ".factors." in k:  # see the docstring
+                np.testing.assert_allclose(run["state"][k], w, rtol=0, atol=1e-4, err_msg=k)
+    whole = sum(v.size for k, v in want.items() if k != "count")
+    if zero:
+        assert all(run["held"] < whole for run in runs)
+    else:
+        for run in runs:
+            for k, f in run["factors"].items():
+                np.testing.assert_array_equal(f, runs[0]["factors"][k], err_msg=k)

@@ -121,8 +121,12 @@ def test_mhd_script_matches_the_jax_script(jax_run, monkeypatch, capsys):
     assert "params: 659027" in out
 
 
-def test_mhd_script_refuses_real_data_it_cannot_read():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_mhd_script_refuses_real_data_it_cannot_read(monkeypatch):
+    """Without the ``the_well`` package a run asked for real data raises the
+    wrappers' ImportError, where the JAX script falls back to synthetic
+    fields (with a stub package it trains: tests/test_torch_well.py)."""
+    monkeypatch.setitem(sys.modules, "the_well", None)
+    with pytest.raises(ImportError, match="the_well"):
         tmhd.main(["--data.well_base_path", "/data/the_well", "--device", "cpu"])
 
 

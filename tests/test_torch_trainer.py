@@ -24,6 +24,7 @@ Tolerances (f32):
 
 import functools
 import json
+import sys
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -227,7 +228,7 @@ def test_scheduler_and_ynorm_carve_out():
     assert first["train_err"] < one["train_err"]
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     _, _, model = _both()
     # mixed_precision is ported (tests/test_torch_mixed_precision.py)
     assert Trainer(model=model, n_epochs=1, device="cpu", mixed_precision=True).mixed_precision
@@ -239,8 +240,10 @@ def test_unported_options_raise():
     # on one device, as the JAX Trainer does
     assert Trainer(model=model, n_epochs=1, device="cpu", use_distributed=True,
                    zero_sharding=True).mesh is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model=model, n_epochs=1, device="cpu", wandb_log=True)
+    # wandb logging is ported (tests/test_torch_optional_packages.py): without
+    # the package it turns itself off, as in the JAX Trainer
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    assert not Trainer(model=model, n_epochs=1, device="cpu", wandb_log=True).wandb_log
     trainer = Trainer(model=model, n_epochs=1, device="cpu")
     loader = DataLoader(TensorDataset(*_pairs(5, 2)), 2)
     opt = build_optimizer(_opt_cfg("full"))
